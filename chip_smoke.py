@@ -8,20 +8,40 @@ failure exits non-zero:
 
 1. device — the card's name, power limit and compute capability
    (must be 9.0);
-2. build  — every kernel of the port compiled with ``nvcc`` (sm_90a);
+2. build  — every kernel of the port compiled with ``nvcc`` (sm_90a),
+   one process per source, all started together;
 3. kernel — each kernel against its plain torch version on the card,
-   bit for bit, on seeded tables: the wave-step kernel on an image of
-   2**24 + 1 words with 2**20 lanes x 8 steps (WAR aliasing, clipped
-   gathers, NaN payloads), on one 8-lane step, on an L2-resident image
-   (64 steps, where barriers weigh more) and at the largest launch
-   shape of the main path; device times from CUDA events, and for each
-   timed case the cost of one grid barrier at its grid, timed alone;
+   bit for bit, on seeded inputs, timed with CUDA events (20 launches
+   after a warm-up) beside its bound:
+   the wave-step kernel (K1) on an image of 2**24 + 1 words with 2**20
+   lanes x 8 steps (WAR aliasing, clipped gathers, NaN payloads), on
+   one 8-lane step, on an L2-resident image (64 steps, where barriers
+   weigh more), with the cost of one grid barrier at each grid timed
+   alone; the hazard frontier kernel (K2) at K=4 rows, S=D=65536, both
+   sides (monotonic rows with equal-address runs and negative
+   addresses, timed beside ``torch.searchsorted``; one unsorted row in
+   a second, untimed case); the forwarding kernel (K3) at
+   S=D=2**20 over a float64 memory of 2**24 + 1 words, about 30% of the
+   producers invalid, ``lookback=min_lookback(src)``;
 4. main path — the nine Table-1 programs at ``--scale-mult 8`` through
    ``executor.execute(..., backend="torch")`` on the card, each final
    array bit-identical to the port's sequential oracle, plus one
-   ``run_sequential`` baseline; the kernel's launch count is read
-   around this phase only;
-5. the card line, the ``{"kernels": [...]}`` line, and last
+   ``run_sequential`` baseline; the wave kernel's launch count is read
+   around this phase only, and K1 is checked again at the largest
+   launch of the phase;
+5. DU path — the port's ``frontier_crosschecks`` on the card over the
+   main path's plans: RAWloop/WARloop/WAWloop waves from K2 and
+   ``wave_partition`` equal the plan's, tanh+spmv's guarded forwarding
+   through K3 is bit-identical to the plan's ``ld_vv`` values; then
+   ``fused_raw_loops`` on a seeded guarded RAW pair at S=D=2**20 against
+   the sequential loops' result; K2/K3 launches are read around this
+   phase and must equal the calls made;
+6. simulate — the nine Table-1 programs at the reference benchmark's
+   1x scales through ``simulator.simulate`` (event engine) in STA, LSQ,
+   FUS1 and FUS2, every result's arrays bit-identical to the oracle and
+   FUS2's to ``execute(backend="torch")`` on the card; cycles, the
+   speedups of FUS2 over STA and LSQ, and host seconds;
+7. the card line, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where no CUDA device is present, and
@@ -34,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -47,20 +68,44 @@ SCALES_8X = {
     "bnn": 512, "pagerank": 768, "fft": 2048, "matpower": 512,
     "hist+add": 8192, "tanh+spmv": 2048,
 }
+# the reference benchmark's 1x scales (benchmarks/paper_table1.py)
+SCALES_1X = {
+    "RAWloop": 2048, "WARloop": 2048, "WAWloop": 2048,
+    "bnn": 64, "pagerank": 96, "fft": 256, "matpower": 64,
+    "hist+add": 1024, "tanh+spmv": 256,
+}
+MODES = ("STA", "LSQ", "FUS1", "FUS2")
 SEQ_PROGRAM, SEQ_STEPS = "hist+add", 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_LANES_PER_SM = 64  # Hopper: INT32 operations per SM per clock
 BIG_M, BIG_W, BIG_S = 2**24 + 1, 2**20, 8
 L2_M, L2_W, L2_S = 2**18 + 1, 2**18, 64
 SYNC_STEPS = (100, 1100)
+K2_K, K2_S, K2_D = 4, 65536, 65536
+K3_S = K3_D = 2**20
+K3_M = 2**24 + 1
+K3_INVALID = 0.3
+REPS = 20
 
 
-def _card_line() -> str:
+def _smi(query: str, fmt: str = "csv,noheader") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _card_line() -> str:
+    return _smi("name,power.limit")
+
+
+def _int32_ops_per_s() -> float:
+    """The card's peak INT32 rate: SMs x 64 lanes x the maximum SM
+    clock, both read from the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
 def _wave_bytes(writes: np.ndarray) -> int:
@@ -134,13 +179,221 @@ def check_wave_kernel(seed, m, s, w, *, timed):
     return out
 
 
+def _bits_equal(got: dict, want: dict) -> bool:
+    return all(got[k].tobytes() == want[k].tobytes() for k in want)
+
+
+def k2_inputs(seed, *, unsorted_row):
+    """``(K, S)`` src rows, non-decreasing with equal-address runs and
+    negative addresses (the last row shuffled when ``unsorted_row``),
+    and ``(K, D)`` dst rows, a fifth of them on src addresses and some
+    outside the rows' range; int32 tensors on the card."""
+    rng = np.random.default_rng(seed)
+    src = np.sort(rng.integers(-2**20, 2**20, (K2_K, K2_S)), axis=1)
+    src[:, 1::4] = src[:, 0::4]
+    if unsorted_row:
+        rng.shuffle(src[-1])
+    dst = rng.integers(-2**20 - 64, 2**20 + 64, (K2_K, K2_D))
+    on = rng.integers(0, K2_S, (K2_K, K2_D // 5))
+    dst[:, ::5][:, :on.shape[1]] = np.take_along_axis(src, on, axis=1)
+    return (torch.from_numpy(src.astype(np.int32)).cuda(),
+            torch.from_numpy(dst.astype(np.int32)).cuda())
+
+
+def check_hazard_kernel(*, unsorted_row, timed):
+    """K2 against ``hazard_frontier_batch_ref`` on both sides, bit for
+    bit; with ``timed`` (monotonic rows only) also
+    ``torch.searchsorted``, which must agree, and all three timed."""
+    from repro_torch.kernels.du_hazard import kernel
+    from repro_torch.kernels.du_hazard.ref import hazard_frontier_batch_ref
+
+    src, dst = k2_inputs(4 + unsorted_row, unsorted_row=unsorted_row)
+    out = {"K": K2_K, "S": K2_S, "D": K2_D, "unsorted_row": unsorted_row}
+    for side in ("right", "left"):
+        got = kernel.hazard_frontier_batch(src, dst, side=side)
+        want = hazard_frontier_batch_ref(src, dst, side=side)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"hazard kernel != plain version ({side}, "
+                                 f"unsorted_row={unsorted_row})")
+        row = {"max_abs_err": float((got - want).abs().max().item())}
+        if timed:
+            right = side == "right"
+            lib = torch.searchsorted(src, dst, right=right, out_int32=True)
+            if not torch.equal(lib, got):
+                raise AssertionError(f"searchsorted != kernel ({side})")
+            row["ms"] = _time_ms(
+                lambda: kernel.hazard_frontier_batch(src, dst, side=side),
+                REPS)
+            row["plain_ms"] = _time_ms(
+                lambda: hazard_frontier_batch_ref(src, dst, side=side), REPS)
+            row["library_ms"] = _time_ms(
+                lambda: torch.searchsorted(src, dst, right=right,
+                                           out_int32=True), REPS)
+        out[side] = row
+    if timed:
+        # the function: each row's src and dst read once, frontiers out
+        out["bound_ms"] = (
+            (K2_S + 2 * K2_D) * 4 * K2_K / HBM_BYTES_PER_S * 1e3
+        )
+        # this design: a compare and an add per (src, dst) pair
+        out["compare_bound_ms"] = (
+            2 * K2_K * K2_S * K2_D / _int32_ops_per_s() * 1e3
+        )
+    return out
+
+
+def k3_inputs(seed):
+    """A guarded producer stream and its consumers, as numpy arrays:
+    ``S`` non-decreasing producer addresses with equal-address runs over
+    ``[0, M)``, float64 values, valid bits (about ``K3_INVALID`` of them
+    0), ``D`` consumer addresses in ``[0, M)``, half of them on producer
+    addresses, and a float64 memory of ``M`` words."""
+    rng = np.random.default_rng(seed)
+    src = np.sort(rng.integers(0, K3_M, K3_S))
+    src[1::3] = src[0::3][:len(src[1::3])]
+    valid = (rng.random(K3_S) >= K3_INVALID).astype(np.int32)
+    val = rng.standard_normal(K3_S)
+    dst = rng.integers(0, K3_M, K3_D)
+    on = rng.random(K3_D) < 0.5
+    dst[on] = src[rng.integers(0, K3_S, int(on.sum()))]
+    memory = rng.standard_normal(K3_M)
+    return (src.astype(np.int32), val, valid, dst.astype(np.int32), memory)
+
+
+def check_forward_kernel():
+    """K3 against ``fused_stream_ref`` on the card, bit for bit on the
+    float64 words, both timed beside the bytes bound."""
+    from repro_torch.kernels.fused_stream import kernel
+    from repro_torch.kernels.fused_stream.ops import min_lookback
+    from repro_torch.kernels.fused_stream.ref import fused_stream_ref
+
+    src, val, valid, dst, memory = (torch.from_numpy(x).cuda()
+                                    for x in k3_inputs(6))
+    frontier = torch.searchsorted(src, dst, right=True, out_int32=True)
+    lb = min_lookback(src)
+    args = (src, val, frontier, dst, memory, valid)
+    got_v, got_h = kernel.fused_stream(*args, lookback=lb)
+    want_v, want_h = fused_stream_ref(*args, lookback=lb)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_v.view(torch.int64), want_v.view(torch.int64))
+            and torch.equal(got_h, want_h)):
+        raise AssertionError("forwarding kernel != plain version")
+    hits = int(got_h.sum().item())
+    if not 0 < hits < K3_D:
+        raise AssertionError(f"degenerate forwarding case: {hits} hits")
+    # the function's bytes: per consumer its frontier and address (8),
+    # its value and hit out (8 + 1); each producer's address, valid bit
+    # and value (4 + 4 + 8) at most once; one 32-byte sector of memory
+    # per miss (a random gather)
+    nbytes = (K3_D * (4 + 4 + 8 + 1) + min(K3_S, K3_D * lb) * 16
+              + (K3_D - hits) * 32)
+    return {
+        "S": K3_S, "D": K3_D, "M": K3_M, "dtype": "float64",
+        "lookback": lb, "hits": hits,
+        "invalid": int((valid == 0).sum().item()),
+        "max_abs_err": float((got_v - want_v).abs().max().item()),
+        "ms": _time_ms(lambda: kernel.fused_stream(*args, lookback=lb), REPS),
+        "plain_ms": _time_ms(lambda: fused_stream_ref(*args, lookback=lb),
+                             REPS),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def sequential_raw_ref(src, val, valid, dst, memory):
+    """The producer loop, then the consumer loop, in program order: each
+    landed store overwrites its word, the last one winning, and each
+    consumer then reads its word (``dst`` in range). Returns
+    ``(values, hits)``, a hit being a word some landed store wrote."""
+    order = torch.arange(src.shape[0], device=src.device)
+    landed = valid == 1
+    last = torch.full(memory.shape, -1, dtype=torch.int64,
+                      device=src.device)
+    last.scatter_reduce_(0, src[landed].long(), order[landed], "amax")
+    after = torch.where(last >= 0, val[last.clamp(min=0)], memory)
+    a = dst.long()
+    return after[a], last[a] >= 0
+
+
+def run_du_path(plans):
+    """The DU-kernel cross-checks over the main path's plans, then
+    ``fused_raw_loops`` end to end; returns a result dict with the K2
+    and K3 calls made."""
+    from repro_torch.crosschecks import frontier_crosschecks
+    from repro_torch.kernels.fused_stream.ops import fused_raw_loops
+
+    out = {"checks": {}, "k2_calls": 0, "k3_calls": 0}
+    for name, (plan, arrays) in plans.items():
+        checks = frontier_crosschecks(name, plan, arrays)
+        if not checks:
+            raise AssertionError(f"{name}: no cross-check ran")
+        out["checks"][name] = checks
+        out["k2_calls"] += len(checks)
+        out["k3_calls"] += sum(c.startswith("fused_stream") for c in checks)
+    src, val, valid, dst, memory = k3_inputs(7)
+    t0 = time.perf_counter()
+    vals, hits = fused_raw_loops(src, val, dst, memory, valid)
+    torch.cuda.synchronize()
+    out["fused_raw_loops_s"] = time.perf_counter() - t0
+    out["k2_calls"] += 1
+    out["k3_calls"] += 1
+    want_v, want_h = sequential_raw_ref(
+        *(torch.from_numpy(x).cuda() for x in (src, val, valid, dst, memory))
+    )
+    if not (torch.equal(vals.view(torch.int64), want_v.view(torch.int64))
+            and torch.equal(hits, want_h)):
+        raise AssertionError("fused_raw_loops != the sequential loops")
+    out["fused_raw_loops"] = {"S": K3_S, "D": K3_D, "M": K3_M,
+                              "hits": int(hits.sum().item())}
+    return out
+
+
+def run_simulate():
+    """The nine Table-1 programs at 1x through ``simulate()`` in the four
+    modes (event engine), arrays bit-identical to the oracle, FUS2's
+    also to ``execute(backend="torch")`` on the card. Returns the
+    per-program rows and the wave segments the executions reported."""
+    from repro_torch.core import executor, loopir as ir, programs, simulator
+
+    rows, segments = [], 0
+    for name in programs.TABLE1:
+        prog, arrays, params = programs.get(name).make(SCALES_1X[name])
+        oracle = ir.interpret(prog, arrays, params)
+        row = {"program": name, "scale": SCALES_1X[name], "host_s": 0.0}
+        for mode in MODES:
+            t0 = time.perf_counter()
+            res = simulator.simulate(prog, arrays, params, mode=mode,
+                                     engine="event")
+            row["host_s"] += time.perf_counter() - t0
+            if not _bits_equal(res.arrays, oracle):
+                raise AssertionError(f"simulate {name}/{mode} != oracle")
+            row[mode] = res.cycles
+        row["forwards"] = res.forwards
+        ex = executor.execute(prog, arrays, params, backend="torch")
+        if not _bits_equal(ex.arrays, res.arrays):
+            raise AssertionError(f"{name}: execute(torch) != simulate FUS2")
+        segments += ex.run.n_segments
+        row["fus2_vs_sta"] = row["STA"] / row["FUS2"]
+        row["fus2_vs_lsq"] = row["LSQ"] / row["FUS2"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows, segments
+
+
+def _hmean(xs):
+    return len(xs) / sum(1.0 / x for x in xs)
+
+
 def run_main_path():
     """The nine Table-1 programs through the port's entry point on the
-    card, each checked bit for bit against the oracle."""
+    card, each checked bit for bit against the oracle. Returns the rows,
+    the launch shapes, and the plans of the programs the DU path
+    cross-checks."""
     from repro_torch.core import executor, loopir as ir, programs
+    from repro_torch.crosschecks import FORWARD_PROGRAM, WAVE_PAIRS
     from repro_torch.kernels import wave_exec
 
-    rows, shapes = [], []
+    rows, shapes, plans = [], [], {}
     for name in programs.TABLE1:
         prog, arrays, params = programs.get(name).make(SCALES_8X[name])
         res = executor.execute(prog, arrays, params, backend="torch")
@@ -159,6 +412,8 @@ def run_main_path():
         rows.append(row)
         m = res.plan.mem_size + 1
         shapes.extend((m, s, w) for s, w in run.segments)
+        if name in WAVE_PAIRS or name == FORWARD_PROGRAM:
+            plans[name] = (res.plan, arrays)
     prog, arrays, params = programs.get(SEQ_PROGRAM).make(
         SCALES_8X[SEQ_PROGRAM]
     )
@@ -175,7 +430,7 @@ def run_main_path():
     print(json.dumps(row), flush=True)
     rows.append(row)
     shapes.extend((plan.mem_size + 1, s, w) for s, w in seq.segments)
-    return rows, shapes
+    return rows, shapes, plans
 
 
 def main() -> int:
@@ -183,6 +438,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from repro_torch import _build
+    from repro_torch.kernels.du_hazard import kernel as k2
+    from repro_torch.kernels.fused_stream import kernel as k3
     from repro_torch.kernels.wave_exec import kernel
 
     # 1. device
@@ -192,15 +449,18 @@ def main() -> int:
     if cap != (9, 0):
         raise AssertionError(f"expected a Hopper card (9.0), got {cap}")
 
-    # 2. build
-    for name in _build.SOURCES:
-        took = _build.build(name)
-        print(f"build: {name} nvcc {took:.2f} s")
+    # 2. build, every nvcc at once
+    t0 = time.perf_counter()
+    took = _build.build_all()
+    print(f"build: all {len(took)} kernels in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, sec in took.items():
+        print(f"build: {name} nvcc {sec:.2f} s")
         log = _build.library_path(name).with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
 
-    # 3. kernel against its plain version (launches here are not counted)
+    # 3. kernels against their plain versions (launches here not counted)
     big = check_wave_kernel(0, BIG_M, BIG_S, BIG_W, timed=True)
     print("wave kernel:", json.dumps(big), flush=True)
     small = check_wave_kernel(1, 9, 1, 8, timed=True)
@@ -208,10 +468,17 @@ def main() -> int:
     # an image that stays in L2: bytes matter less, barriers more
     l2 = check_wave_kernel(3, L2_M, L2_S, L2_W, timed=True)
     print("wave kernel, L2-resident image:", json.dumps(l2), flush=True)
+    hz = check_hazard_kernel(unsorted_row=False, timed=True)
+    print("hazard kernel:", json.dumps(hz), flush=True)
+    hz_unsorted = check_hazard_kernel(unsorted_row=True, timed=False)
+    print("hazard kernel, one unsorted row:", json.dumps(hz_unsorted),
+          flush=True)
+    fw = check_forward_kernel()
+    print("forwarding kernel:", json.dumps(fw), flush=True)
 
-    # 4. main path, with the launch count read around it alone
+    # 4. main path, with the wave kernel's count read around it alone
     kernel.wave_loop.launches = 0
-    rows, shapes = run_main_path()
+    rows, shapes, plans = run_main_path()
     launches = kernel.wave_loop.launches
     expected = sum(r["n_segments"] for r in rows)
     if launches == 0 or launches != expected:
@@ -224,8 +491,36 @@ def main() -> int:
     print("wave kernel at the main path's largest launch:",
           json.dumps(main_shape), flush=True)
 
-    # 5. result lines
-    entry = {
+    # 5. DU path, with the K2 and K3 counts read around it alone
+    k2.hazard_frontier_batch.launches = 0
+    k3.fused_stream.launches = 0
+    du = run_du_path(plans)
+    k2_launches = k2.hazard_frontier_batch.launches
+    k3_launches = k3.fused_stream.launches
+    print("DU path:", json.dumps(du), flush=True)
+    if (k2_launches, k3_launches) != (du["k2_calls"], du["k3_calls"]) or (
+        0 in (k2_launches, k3_launches)
+    ):
+        raise AssertionError(
+            f"DU path launched K2 {k2_launches} and K3 {k3_launches} "
+            f"times for {du['k2_calls']} and {du['k3_calls']} calls"
+        )
+
+    # 6. simulate, with the wave kernel's count read around it
+    kernel.wave_loop.launches = 0
+    sim_rows, sim_segments = run_simulate()
+    if kernel.wave_loop.launches != sim_segments:
+        raise AssertionError("simulate phase: wave launches != segments")
+    summary = {
+        "simulate_host_s": sum(r["host_s"] for r in sim_rows),
+        "FUS2_vs_STA_hmean": _hmean([r["fus2_vs_sta"] for r in sim_rows]),
+        "FUS2_vs_LSQ_hmean": _hmean([r["fus2_vs_lsq"] for r in sim_rows]),
+        "wave_launches": sim_segments,
+    }
+    print("simulate:", json.dumps(summary), flush=True)
+
+    # 7. result lines
+    wave_entry = {
         "name": "wave_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/wave_exec/csrc/wave_exec.cu",
         "replaces": "src/repro/kernels/wave_exec/kernel.py:43",
@@ -242,8 +537,37 @@ def main() -> int:
         "main_path_largest_launch": main_shape,
         "one_8_lane_step": small, "l2_resident": l2,
     }
+    hazard_entry = {
+        "name": "hazard_frontier", "route": "cuda",
+        "source": "src/repro_torch/kernels/du_hazard/csrc/du_hazard.cu",
+        "replaces": "src/repro/kernels/du_hazard/kernel.py:45",
+        "launches": k2_launches,
+        "tolerance": "bit-exact (torch.equal on int32 frontiers)",
+        "max_abs_err": max(c[side]["max_abs_err"] for c in (hz, hz_unsorted)
+                           for side in ("right", "left")),
+        "ms": hz["right"]["ms"], "plain_ms": hz["right"]["plain_ms"],
+        "bound_ms": hz["bound_ms"], "bound_by": "bytes",
+        "compare_bound_ms": hz["compare_bound_ms"],
+        "library_ms": hz["right"]["library_ms"],
+        "library": "torch.searchsorted(right=True) on the monotonic rows",
+        "side_left": hz["left"],
+        "shape": {"K": K2_K, "S": K2_S, "D": K2_D},
+    }
+    forward_entry = {
+        "name": "fused_stream", "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_stream/csrc/fused_stream.cu",
+        "replaces": "src/repro/kernels/fused_stream/kernel.py:40",
+        "launches": k3_launches,
+        "tolerance": "bit-exact (torch.equal on float64 words and hits)",
+        "max_abs_err": fw["max_abs_err"],
+        "ms": fw["ms"], "plain_ms": fw["plain_ms"],
+        "bound_ms": fw["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none: no single torch call forwards",
+        "shape": {k: fw[k] for k in ("S", "D", "M", "lookback", "hits")},
+    }
     print(_card_line())
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [wave_entry, hazard_entry, forward_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -12,6 +12,10 @@ hand for Hopper (``sm_90a``), built from ``csrc/`` at first use by
 Ported so far: the wave executor's main path,
 ``core.executor.execute(program, arrays, params, backend="torch")``,
 from LoopIR to final arrays, with the wave-step kernel
-(``kernels/wave_exec``). Entry points run on the card (``device="cuda"``)
-unless the caller asks for the CPU, as the tests do.
+(``kernels/wave_exec``); the DU primitives on the hazard frontier and
+forwarding kernels (``kernels/du_hazard``, ``kernels/fused_stream``)
+with the WavePlan cross-checks built on them (``crosschecks``); and the
+cycle simulator, ``core.simulator.simulate`` (numpy on the host, as in
+the reference). Entry points run on the card (``device="cuda"``) unless
+the caller asks for the CPU, as the tests do.
 """

@@ -9,11 +9,13 @@ named by a hash of the source and the flags, and loaded with
 unchanged one is compiled once per checkout.
 
 A failed build raises ``BuildError`` with the compiler's output;
-nothing falls back to a plain version.
+nothing falls back to a plain version. ``build_all`` compiles every
+source at once, one ``nvcc`` process each.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -32,6 +34,8 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 # the package)
 SOURCES = {
     "wave_exec": "kernels/wave_exec/csrc/wave_exec.cu",
+    "du_hazard": "kernels/du_hazard/csrc/du_hazard.cu",
+    "fused_stream": "kernels/fused_stream/csrc/fused_stream.cu",
 }
 
 NVCC_FLAGS = (
@@ -89,6 +93,19 @@ def build(name: str) -> float:
         )
     os.replace(tmp, out)
     return took
+
+
+def build_all() -> dict[str, float]:
+    """Compile every kernel of ``SOURCES`` not built yet, each ``nvcc``
+    started at once in its own process, and wait for all. Returns the
+    seconds each took (0.0 where nothing was built); raises
+    ``BuildError`` naming every kernel that failed, after all ended."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        jobs = {name: pool.submit(build, name) for name in SOURCES}
+    failed = [str(f.exception()) for f in jobs.values() if f.exception()]
+    if failed:
+        raise BuildError("\n".join(failed))
+    return {name: f.result() for name, f in jobs.items()}
 
 
 @functools.cache

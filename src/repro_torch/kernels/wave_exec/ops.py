@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import executor as execlib
+from repro_torch.device import resolve_device
 from repro_torch.kernels.wave_exec.kernel import wave_loop
 
 __all__ = ["run_plan", "run_sequential", "WaveExecResult", "resolve_device"]
@@ -80,22 +81,6 @@ def _bucket(n: int) -> int:
     return b
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises ``RuntimeError`` for a
-    CUDA device when no card is present (never falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "wave backend: device 'cuda' requested but no CUDA device "
-                "is available (device='cpu' runs the plain torch version "
-                "and is meant for tests)"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"wave backend: unsupported device {dev}")
-    return dev
-
-
 def _run(
     plan: execlib.WavePlan,
     arrays: dict[str, np.ndarray],
@@ -109,7 +94,7 @@ def _run(
 ) -> WaveExecResult:
     if compute not in ("host", "torch"):
         raise ValueError(f"unknown compute {compute!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device, "wave backend")
     assert plan.mem_size < 2**31 - 1, "flat image exceeds int32 addressing"
     # flat f64 image plus the scratch word pad lanes target
     scratch = plan.mem_size

@@ -1,7 +1,9 @@
-"""Card-only tests of the port: the CUDA wave kernel against its plain
-torch version, and the main path on the card against the oracle.
+"""Card-only tests of the port: the CUDA kernels (wave steps, hazard
+frontier, forwarding) against their plain torch versions, the main path
+on the card against the oracle, and the DU-kernel cross-checks of a
+WavePlan on the card.
 
-The kernel has no CPU mode, so every test here carries the ``cuda``
+The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips itself (with the reason) where no CUDA device is
 present. On a machine with an H100 and ``nvcc``:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -13,7 +15,14 @@ import pytest
 import torch
 
 from repro_torch.core import executor, loopir as ir, programs
+from repro_torch.crosschecks import FORWARD_PROGRAM, WAVE_PAIRS
+from repro_torch.crosschecks import frontier_crosschecks
 from repro_torch.kernels import wave_exec
+from repro_torch.kernels.du_hazard import kernel as k2
+from repro_torch.kernels.du_hazard.ref import hazard_frontier_batch_ref
+from repro_torch.kernels.fused_stream import kernel as k3
+from repro_torch.kernels.fused_stream.ops import fused_raw_loops, min_lookback
+from repro_torch.kernels.fused_stream.ref import fused_stream_ref
 from repro_torch.kernels.wave_exec import kernel
 from repro_torch.kernels.wave_exec.ref import random_tables, wave_loop_ref
 
@@ -29,7 +38,7 @@ SCALES = {
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the wave kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -83,3 +92,94 @@ def test_compute_torch_on_card_is_bit_exact_on_exact_ops(cuda):
     oracle = ir.interpret(prog, arrays, params)
     for k in oracle:
         assert res.arrays[k].tobytes() == oracle[k].tobytes(), k
+
+
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("k,s,d", [(1, 3, 5), (4, 3000, 2049), (3, 0, 7)])
+def test_hazard_frontier_kernel_matches_plain(cuda, k, s, d, side):
+    """Monotonic rows with equal-address runs and negative addresses, one
+    unsorted row, INT32_MAX among the consumers (counts S, no pads)."""
+    rng = np.random.default_rng(k * 10 + s)
+    src = np.sort(rng.integers(-500, 500, (k, s)), axis=1).astype(np.int32)
+    if s:
+        src[:, 1::2] = src[:, 0::2][:, : src[:, 1::2].shape[1]]
+        rng.shuffle(src[-1])
+    dst = rng.integers(-520, 520, (k, d)).astype(np.int32)
+    dst[:, 0] = 2**31 - 1
+    src_d = torch.from_numpy(src).to(cuda)
+    dst_d = torch.from_numpy(dst).to(cuda)
+    before = k2.hazard_frontier_batch.launches
+    got = k2.hazard_frontier_batch(src_d, dst_d, side=side)
+    want = hazard_frontier_batch_ref(src_d, dst_d, side=side)
+    torch.cuda.synchronize()
+    assert k2.hazard_frontier_batch.launches == before + 1
+    assert torch.equal(got, want)
+    if side == "right":
+        assert got[:, 0].tolist() == [s] * k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lookback", [1, 3])
+def test_fused_stream_kernel_matches_plain(cuda, dtype, lookback):
+    rng = np.random.default_rng(lookback)
+    s, d, m = 5000, 4097, 3001
+    src = np.sort(rng.integers(0, m, s))
+    src[1::3] = src[0::3][: len(src[1::3])]
+    dst = rng.integers(-3, m + 3, d)
+    dst[::2] = rng.choice(src, len(dst[::2]))
+    f = np.searchsorted(src, dst, side="right")
+    f[:4] = (0, -2, s + 5, s)
+    t = lambda x, dt=torch.int32: torch.from_numpy(np.asarray(x)).to(cuda, dt)
+    src_d, dst_d, f_d = t(src), t(dst), t(f)
+    val = torch.from_numpy(rng.standard_normal(s)).to(cuda, dtype)
+    mem = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+    valid = t(rng.random(s) < 0.7)
+    for v in (valid, None):
+        before = k3.fused_stream.launches
+        got_v, got_h = k3.fused_stream(src_d, val, f_d, dst_d, mem, v,
+                                       lookback=lookback)
+        want_v, want_h = fused_stream_ref(src_d, val, f_d, dst_d, mem, v,
+                                          lookback=lookback)
+        torch.cuda.synchronize()
+        assert k3.fused_stream.launches == before + 1
+        bits = torch.int32 if dtype == torch.float32 else torch.int64
+        assert torch.equal(got_v.view(bits), want_v.view(bits))
+        assert torch.equal(got_h, want_h)
+        assert got_h.any() and not got_h.all()
+    before = k3.fused_stream.launches
+    empty_v, _ = k3.fused_stream(src_d, val, f_d[:0], dst_d[:0], mem)
+    assert empty_v.shape == (0,) and k3.fused_stream.launches == before
+
+
+def test_fused_raw_loops_on_card_matches_sequential_loop(cuda):
+    rng = np.random.default_rng(11)
+    m = 400
+    mem0 = rng.standard_normal(m)
+    src = np.sort(rng.integers(0, m, 900))
+    val = rng.standard_normal(900)
+    valid = (rng.random(900) < 0.6).astype(np.int32)
+    dst = rng.integers(0, m, 700)
+    seq = mem0.copy()
+    for a, v, ok in zip(src, val, valid):
+        if ok:
+            seq[a] = v
+    n2, n3 = k2.hazard_frontier_batch.launches, k3.fused_stream.launches
+    got, hits = fused_raw_loops(src, val, dst, mem0, valid)
+    assert got.device.type == "cuda"
+    assert (k2.hazard_frontier_batch.launches - n2,
+            k3.fused_stream.launches - n3) == (1, 1)
+    assert got.cpu().numpy().tobytes() == seq[dst].tobytes()
+    assert hits.any()
+    assert min_lookback(torch.from_numpy(src).to(cuda)) == min_lookback(src)
+
+
+@pytest.mark.parametrize("name", [*WAVE_PAIRS, FORWARD_PROGRAM])
+def test_frontier_crosschecks_on_card(cuda, name):
+    prog, arrays, params = programs.get(name).make(SCALES[name])
+    plan = executor.build_wave_plan(prog, arrays, params)
+    n2, n3 = k2.hazard_frontier_batch.launches, k3.fused_stream.launches
+    checks = frontier_crosschecks(name, plan, arrays)
+    assert checks == frontier_crosschecks(name, plan, arrays, device="cpu")
+    forwards = int(name == FORWARD_PROGRAM)
+    assert k2.hazard_frontier_batch.launches - n2 == 1
+    assert k3.fused_stream.launches - n3 == forwards
