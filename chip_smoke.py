@@ -8,8 +8,8 @@ failure exits non-zero:
 
 1. device — the card's name, power limit and compute capability
    (must be 9.0);
-2. build  — every kernel of the port compiled with ``nvcc`` (sm_90a),
-   one process per source, all started together;
+2. build  — every kernel of the port (K1-K5) compiled with ``nvcc``
+   (sm_90a), one process per source, all started together;
 3. kernel — each kernel against its plain torch version on the card,
    bit for bit, on seeded inputs, timed with CUDA events (20 launches
    after a warm-up) beside its bound:
@@ -22,7 +22,13 @@ failure exits non-zero:
    addresses, timed beside ``torch.searchsorted``; one unsorted row in
    a second, untimed case); the forwarding kernel (K3) at
    S=D=2**20 over a float64 memory of 2**24 + 1 words, about 30% of the
-   producers invalid, ``lookback=min_lookback(src)``;
+   producers invalid, ``lookback=min_lookback(src)``; the ELL SpMV
+   kernel (K4) on a seeded CSR of 2**20 rows (lengths 1..16, columns
+   sorted and distinct in each row over 2**20), float32, timed beside
+   one cuSPARSE product (``torch.mv`` on a sparse CSR tensor); the
+   histogram kernel (K5) at N=2**26 with 32 bins (about 1% of the data
+   -1 and 1% past the last bin) beside ``torch.bincount``, and at
+   N=2**24 with 2**16 bins on its global-memory path;
 4. main path — the nine Table-1 programs at ``--scale-mult 8`` through
    ``executor.execute(..., backend="torch")`` on the card, each final
    array bit-identical to the port's sequential oracle, plus one
@@ -36,13 +42,29 @@ failure exits non-zero:
    ``fused_raw_loops`` on a seeded guarded RAW pair at S=D=2**20 against
    the sequential loops' result; K2/K3 launches are read around this
    phase and must equal the calls made;
-6. simulate — the nine Table-1 programs at the reference benchmark's
+6. substrate path — ``hist_add`` on hist+add's data at 8x, bit-identical
+   to the oracle's ``hsum``, and four chained ``spmv_from_csr`` on
+   matpower's matrix at 8x, within a stated float32 error bound of the
+   oracle's A^3 x and A^4 x; K4/K5 launches are read around this phase
+   and must equal the calls made;
+7. speculation path — the four speculative programs at
+   ``BENCH_SPEC.json``'s scales (8x) through ``executor.execute(...,
+   speculation="auto", backend="torch")``, each final array
+   bit-identical to the oracle and to the hand-written oracles of
+   ``kernels/dynloop/ref.py``; K1 launches read around it;
+8. streaming path — the three streaming programs at their default
+   scales through ``execute(..., fifo_depth=d, backend="torch")`` for
+   d in 1, 2, 4, arrays bit-identical to both oracles, wave counts
+   non-increasing in depth; K1 launches read around it;
+9. simulate — the nine Table-1 programs at the reference benchmark's
    1x scales through ``simulator.simulate`` (event engine) in STA, LSQ,
    FUS1 and FUS2, every result's arrays bit-identical to the oracle and
    FUS2's to ``execute(backend="torch")`` on the card; cycles, the
-   speedups of FUS2 over STA and LSQ, and host seconds;
-7. the card line, the ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+   speedups of FUS2 over STA and LSQ, and host seconds; then the
+   speculative programs at 8x in STA and in FUS2 under each predictor,
+   cycles equal to the reference's;
+10. the card line, the ``{"kernels": [...]}`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where no CUDA device is present, and
 where the port's package is missing. Imports nothing of JAX.
@@ -55,6 +77,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -86,6 +109,32 @@ K3_S = K3_D = 2**20
 K3_M = 2**24 + 1
 K3_INVALID = 0.3
 REPS = 20
+K4_N = K4_M = 2**20
+K4_MAX_ROW, K4_BLOCK_R = 16, 128
+K5_N, K5_BINS = 2**26, 32
+K5G_N, K5G_BINS = 2**24, 2**16
+K5_OUT_OF_RANGE = 0.01  # share of the data at -1, and again past the bins
+F32_UNIT = 2.0**-24  # unit roundoff of float32
+F64_UNIT = 2.0**-53
+# the speculative programs at BENCH_SPEC.json's scales (its --scale-mult 8)
+SPEC_SCALES_8X = {"spmv_ldtrip": 1024, "bfs_front": 2048, "chase_sum": 2048,
+                  "strided_scan": 2048}
+PREDICTORS = ("last", "stride", "context", "auto")
+# simulate() cycles (event engine) of the JAX package's simulator at
+# SPEC_SCALES_8X with its default SimParams: STA, then FUS2 under each
+# predictor. The FUS2 cycles equal BENCH_SPEC.json's; its STA cycles
+# predate the calibrated SimParams (sta_mem_dep_ii 224, dram_latency 200).
+SPEC_CYCLES = {
+    "spmv_ldtrip": {"STA": 1844576, "last": 460724, "stride": 460722,
+                    "context": 460719, "auto": 460725},
+    "bfs_front": {"STA": 467645, "last": 2488, "stride": 2488,
+                  "context": 2488, "auto": 2488},
+    "chase_sum": {"STA": 1376476, "last": 1339622, "stride": 1339622,
+                  "context": 452082, "auto": 452300},
+    "strided_scan": {"STA": 458972, "last": 446694, "stride": 3788,
+                     "context": 446694, "auto": 4006},
+}
+FIFO_DEPTHS = (1, 2, 4)
 
 
 def _smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -300,6 +349,132 @@ def check_forward_kernel():
     }
 
 
+def k4_inputs(seed):
+    """A seeded CSR matrix of ``K4_N`` rows over ``K4_M`` columns: row
+    lengths uniform in 1..K4_MAX_ROW, the p-th entry of a row in the
+    p-th of K4_MAX_ROW equal strata of the columns (so columns are sorted
+    and distinct within a row), float32 values, and a float32 ``x``."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, K4_MAX_ROW + 1, K4_N)
+    rp = np.concatenate([[0], np.cumsum(lens)])
+    nnz = int(rp[-1])
+    pos = np.arange(nnz) - np.repeat(rp[:-1], lens)
+    stratum = K4_M // K4_MAX_ROW
+    cols = pos * stratum + rng.integers(0, stratum, nnz)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    x = rng.standard_normal(K4_M).astype(np.float32)
+    return rp, cols, vals, x
+
+
+def _csr_abs_matvec(rp, cols, vals, x):
+    """``|A| @ |x|`` in float64 on the host, for error bounds."""
+    row = np.repeat(np.arange(len(rp) - 1), np.diff(rp))
+    return np.bincount(row, weights=np.abs(vals) * np.abs(x[cols]),
+                       minlength=len(rp) - 1)
+
+
+def _gamma(n, unit):
+    """The rounding-error factor n·u / (1 - n·u) of n roundings."""
+    return n * unit / (1 - n * unit)
+
+
+def check_spmv_kernel():
+    """K4 against ``csr_spmv_ref`` on the card, bit for bit, and one
+    cuSPARSE product (``torch.mv`` on a sparse CSR tensor) within twice
+    the float32 matvec bound γ_{W+3}·|A||x| (W products and sums, the
+    rounding of vals and x): each sum order is within the bound of the
+    exact product, so two orders are within twice it. All three timed."""
+    from repro_torch.kernels.csr_spmv import kernel
+    from repro_torch.kernels.csr_spmv.ref import csr_spmv_ref, csr_to_ell
+
+    rp, ci, vv, x = k4_inputs(8)
+    cols, vals = csr_to_ell(rp, ci, vv, K4_N, K4_BLOCK_R)
+    c, v, xd = (torch.from_numpy(a).cuda() for a in (cols, vals, x))
+    got = kernel.csr_spmv(c, v, xd, block_r=K4_BLOCK_R)
+    want = csr_spmv_ref(c, v, xd)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("csr_spmv kernel != plain version")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        lib_a = torch.sparse_csr_tensor(
+            torch.from_numpy(rp).cuda(), torch.from_numpy(ci).cuda(),
+            torch.from_numpy(vv).cuda(), size=(K4_N, K4_M),
+            check_invariants=False,
+        )
+        lib = torch.mv(lib_a, xd)
+    w = cols.shape[1]
+    slack = 2 * _gamma(w + 3, F32_UNIT) * _csr_abs_matvec(rp, ci, vv, x)
+    lib_err = (lib - got).abs().double().cpu().numpy()
+    if not (lib_err <= slack).all():
+        raise AssertionError("cuSPARSE and the K4 kernel differ by more "
+                             "than the float32 matvec bound")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        library_ms = _time_ms(lambda: torch.mv(lib_a, xd), REPS)
+    return {
+        "N": K4_N, "M": K4_M, "W": w, "nnz": int(rp[-1]),
+        "max_abs_err": float((got - want).abs().max().item()),
+        "library_max_abs_err": float(lib_err.max()),
+        "library_max_err_over_bound": float((lib_err / slack).max()),
+        "ms": _time_ms(lambda: kernel.csr_spmv(c, v, xd,
+                                               block_r=K4_BLOCK_R), REPS),
+        "plain_ms": _time_ms(lambda: csr_spmv_ref(c, v, xd), REPS),
+        "library_ms": library_ms,
+        # the ELL arrays read once, y written once, x read once (its 4 MB
+        # stay in L2)
+        "bound_ms": (cols.size * 8 + K4_N * 4 + K4_M * 4)
+        / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def k5_inputs(seed, n, bins):
+    """``n`` int32 bin indices made on the card from ``seed``: uniform in
+    ``[0, bins)``, then about ``K5_OUT_OF_RANGE`` of them set to -1 and as
+    many to bins at or past ``bins``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = torch.randint(0, bins, (n,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    u = torch.rand(n, generator=g, device="cuda")
+    d[u < K5_OUT_OF_RANGE] = -1
+    far = (u >= K5_OUT_OF_RANGE) & (u < 2 * K5_OUT_OF_RANGE)
+    d[far] = bins + d[far] % 7
+    return d
+
+
+def check_histogram_kernel(seed, n, bins):
+    """K5 against ``histogram_ref`` on the card, bit for bit, and
+    ``torch.bincount`` of the in-range data, which must equal it after the
+    cast; all three timed beside the bytes bound."""
+    from repro_torch.kernels.histogram import kernel
+    from repro_torch.kernels.histogram.ref import histogram_ref
+
+    d = k5_inputs(seed, n, bins)
+    got = kernel.histogram(d, n_bins=bins)
+    want = histogram_ref(d, n_bins=bins)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"histogram kernel != plain version at N={n}, "
+                             f"{bins} bins")
+    inside = d[(d >= 0) & (d < bins)]
+    if not torch.equal(torch.bincount(inside, minlength=bins).float(), got):
+        raise AssertionError("torch.bincount != histogram kernel")
+    dropped = n - inside.numel()
+    if not 0 < dropped < n:
+        raise AssertionError(f"degenerate histogram case: {dropped} dropped")
+    return {
+        "N": n, "n_bins": bins, "dropped": dropped,
+        "path": "shared" if bins <= kernel.MAX_SHARED_BINS else "global",
+        "max_abs_err": float((got - want).abs().max().item()),
+        "ms": _time_ms(lambda: kernel.histogram(d, n_bins=bins), REPS),
+        "plain_ms": _time_ms(lambda: histogram_ref(d, n_bins=bins), REPS),
+        "library_ms": _time_ms(
+            lambda: torch.bincount(inside, minlength=bins), REPS),
+        # the data read once, the histogram written once
+        "bound_ms": (n * 4 + bins * 4) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
 def sequential_raw_ref(src, val, valid, dst, memory):
     """The producer loop, then the consumer loop, in program order: each
     landed store overwrites its word, the last one winning, and each
@@ -346,6 +521,186 @@ def run_du_path(plans):
     out["fused_raw_loops"] = {"S": K3_S, "D": K3_D, "M": K3_M,
                               "hits": int(hits.sum().item())}
     return out
+
+
+def run_substrate_path(device="cuda"):
+    """hist+add and matpower at 8x through the substrate ops: ``hist_add``
+    on the program's ``d1``/``d2`` must give the oracle's ``hsum`` bit for
+    bit (counts far below 2**24), and four chained ``spmv_from_csr`` the
+    oracle's final ``y`` (A^3 x0) and ``x`` (A^4 x0) within the float32
+    bound of a k-fold chained matvec, ((1 + γ)^k - 1)·|A|^k|x0| with
+    γ = γ_{W+3} (W products and sums, the rounding of vals and of x), plus
+    the float64 oracle's own, much smaller, bound. Returns a result dict
+    with the K4 and K5 calls made."""
+    from repro_torch.core import loopir as ir, programs
+    from repro_torch.kernels.csr_spmv.ops import spmv_from_csr
+    from repro_torch.kernels.histogram.ops import hist_add
+
+    out = {"k4_calls": 0, "k5_calls": 0}
+    prog, arrays, params = programs.get("hist+add").make(SCALES_8X["hist+add"])
+    oracle = ir.interpret(prog, arrays, params)
+    h = hist_add(arrays["d1"], arrays["d2"], n_bins=params["bins"],
+                 device=device)
+    out["k5_calls"] += 2
+    if h.double().cpu().numpy().tobytes() != oracle["hsum"].tobytes():
+        raise AssertionError("hist_add != the oracle's hsum")
+    out["hist_add"] = {"n": params["n"], "bins": params["bins"],
+                       "max_bin": float(h.max().item())}
+
+    prog, arrays, params = programs.get("matpower").make(SCALES_8X["matpower"])
+    oracle = ir.interpret(prog, arrays, params)
+    rp, ci, val = arrays["rp"], arrays["cidx"], arrays["val"]
+    w = int(np.diff(rp).max())
+    mag = np.abs(arrays["x"])
+    cur = torch.as_tensor(arrays["x"], device=device)
+    rel_err = {}
+    for k in range(1, 2 * params["powers"] + 1):
+        cur = spmv_from_csr(rp, ci, val, cur, device=device)
+        out["k4_calls"] += 1
+        mag = _csr_abs_matvec(rp, ci, val, mag)
+        want = {3: oracle["y"], 4: oracle["x"]}.get(k)
+        if want is None:
+            continue
+        tol = ((1 + _gamma(w + 3, F32_UNIT)) ** k - 1
+               + (1 + _gamma(w, F64_UNIT)) ** k - 1) * mag
+        err = np.abs(cur.cpu().numpy() - want)
+        if not (err <= tol).all():
+            raise AssertionError(f"matpower A^{k} x: float32 error above "
+                                 f"its bound")
+        rel_err[f"A^{k}x"] = float((err / tol).max())
+    out["matpower"] = {"nodes": params["nodes"], "W": w,
+                       "max_err_over_bound": rel_err}
+    return out
+
+
+def spec_oracle(name, arrays, params):
+    """The final arrays of a speculative program from the hand-written
+    oracles of ``kernels/dynloop/ref.py``."""
+    from repro_torch.kernels.dynloop import ref
+
+    if name == "spmv_ldtrip":
+        rowlen, y = ref.spmv_ldtrip_ref(arrays["deg"], arrays["rp"],
+                                        arrays["cidx"], arrays["val"],
+                                        arrays["x"])
+        return {"rowlen": rowlen, "y": y}
+    if name == "bfs_front":
+        foff, visit = ref.bfs_front_ref(arrays["off0"], arrays["front"],
+                                        arrays["nodeval"],
+                                        len(arrays["visit"]))
+        return {"foff": foff, "visit": visit}
+    if name == "chase_sum":
+        return {"out": ref.chase_sum_ref(arrays["nxt"], arrays["w"],
+                                         params["steps"])}
+    return {"out": ref.strided_scan_ref(arrays["ptr"], arrays["w"],
+                                        params["n"])}
+
+
+def stream_oracle(name, arrays, params):
+    """The final arrays of a streaming program from the hand-written
+    oracles of ``kernels/dynloop/ref.py``."""
+    from repro_torch.kernels.dynloop import ref
+
+    if name == "stream_dot":
+        return {"out": ref.stream_dot_ref(arrays["a"], arrays["bv"],
+                                          arrays["out"], params["nb"],
+                                          params["k"])}
+    if name == "filter_pipe":
+        return {"y": ref.filter_pipe_ref(arrays["x"], arrays["y"])}
+    return {"z": ref.stream_join_ref(arrays["u"], arrays["w"], arrays["z"])}
+
+
+def run_spec_path(device="cuda"):
+    """The four speculative programs at 8x through ``execute`` on the
+    card, bit-identical to both oracles. Returns the rows and the wave
+    segments the runs report."""
+    from repro_torch.core import executor, loopir as ir, programs
+
+    rows, segments = [], 0
+    for name in programs.SPEC_KERNELS:
+        prog, arrays, params = programs.get(name).make(SPEC_SCALES_8X[name])
+        res = executor.execute(prog, arrays, params, speculation="auto",
+                               backend="torch", device=device)
+        if not _bits_equal(res.arrays, ir.interpret(prog, arrays, params)):
+            raise AssertionError(f"{name}: differs from the oracle")
+        if not _bits_equal(res.arrays, spec_oracle(name, arrays, params)):
+            raise AssertionError(f"{name}: differs from kernels/dynloop/ref.py")
+        run = res.run
+        row = {
+            "program": name, "scale": SPEC_SCALES_8X[name],
+            "n_requests": res.stats.n_requests, "n_waves": res.stats.n_waves,
+            "n_steps": run.n_steps, "n_segments": run.n_segments,
+            "resolve_s": run.resolve_s, "device_s": run.device_s,
+        }
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        segments += run.n_segments
+    return rows, segments
+
+
+def run_stream_path(device="cuda"):
+    """The three streaming programs at their default scales through
+    ``execute`` at FIFO depths 1, 2 and 4, bit-identical to both oracles,
+    wave counts non-increasing in depth. Returns the rows and the wave
+    segments the runs report."""
+    from repro_torch.core import executor, loopir as ir, programs
+
+    rows, segments = [], 0
+    for name in programs.STREAM_KERNELS:
+        bench = programs.get(name)
+        prog, arrays, params = bench.make(bench.default_scale)
+        oracle = ir.interpret(prog, arrays, params)
+        hand = stream_oracle(name, arrays, params)
+        waves = []
+        for depth in FIFO_DEPTHS:
+            res = executor.execute(prog, arrays, params, fifo_depth=depth,
+                                   backend="torch", device=device)
+            if not (_bits_equal(res.arrays, oracle)
+                    and _bits_equal(res.arrays, hand)):
+                raise AssertionError(f"{name}@{depth}: differs from an oracle")
+            waves.append(res.stats.n_waves)
+            segments += res.run.n_segments
+            row = {
+                "program": name, "scale": bench.default_scale,
+                "fifo_depth": depth, "n_requests": res.stats.n_requests,
+                "n_waves": res.stats.n_waves, "n_steps": res.run.n_steps,
+                "n_segments": res.run.n_segments,
+                "resolve_s": res.run.resolve_s, "device_s": res.run.device_s,
+            }
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        if waves != sorted(waves, reverse=True):
+            raise AssertionError(f"{name}: waves grow with depth: {waves}")
+    return rows, segments
+
+
+def run_spec_simulate():
+    """The four speculative programs at 8x through ``simulate()`` (event
+    engine) in STA and in FUS2 under each predictor: arrays bit-identical
+    to the oracle, cycles equal to the reference's (``SPEC_CYCLES``)."""
+    from repro_torch.core import loopir as ir, programs, simulator
+
+    rows = []
+    for name in programs.SPEC_KERNELS:
+        prog, arrays, params = programs.get(name).make(SPEC_SCALES_8X[name])
+        oracle = ir.interpret(prog, arrays, params)
+        row = {"program": name, "scale": SPEC_SCALES_8X[name], "host_s": 0.0}
+        for key in ("STA",) + PREDICTORS:
+            mode, pred = ("STA", "auto") if key == "STA" else ("FUS2", key)
+            t0 = time.perf_counter()
+            res = simulator.simulate(prog, arrays, params, mode=mode,
+                                     engine="event", speculation="auto",
+                                     predictor=pred)
+            row["host_s"] += time.perf_counter() - t0
+            if not _bits_equal(res.arrays, oracle):
+                raise AssertionError(f"simulate {name}/{key} != oracle")
+            row[key] = res.cycles
+        if {k: row[k] for k in SPEC_CYCLES[name]} != SPEC_CYCLES[name]:
+            raise AssertionError(f"simulate {name}: cycles differ from the "
+                                 f"reference's {SPEC_CYCLES[name]}")
+        row["fus2_vs_sta"] = {p: row["STA"] / row[p] for p in PREDICTORS}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 def run_simulate():
@@ -439,7 +794,9 @@ def main() -> int:
         return 1
     from repro_torch import _build
     from repro_torch.kernels.du_hazard import kernel as k2
+    from repro_torch.kernels.csr_spmv import kernel as k4
     from repro_torch.kernels.fused_stream import kernel as k3
+    from repro_torch.kernels.histogram import kernel as k5
     from repro_torch.kernels.wave_exec import kernel
 
     # 1. device
@@ -475,6 +832,13 @@ def main() -> int:
           flush=True)
     fw = check_forward_kernel()
     print("forwarding kernel:", json.dumps(fw), flush=True)
+    sp = check_spmv_kernel()
+    print("ELL SpMV kernel:", json.dumps(sp), flush=True)
+    hi = check_histogram_kernel(9, K5_N, K5_BINS)
+    print("histogram kernel:", json.dumps(hi), flush=True)
+    hi_global = check_histogram_kernel(10, K5G_N, K5G_BINS)
+    print("histogram kernel, global-memory path:", json.dumps(hi_global),
+          flush=True)
 
     # 4. main path, with the wave kernel's count read around it alone
     kernel.wave_loop.launches = 0
@@ -506,20 +870,61 @@ def main() -> int:
             f"times for {du['k2_calls']} and {du['k3_calls']} calls"
         )
 
-    # 6. simulate, with the wave kernel's count read around it
+    # 6. substrate path, with the K4 and K5 counts read around it alone
+    k4.csr_spmv.launches = 0
+    k5.histogram.launches = 0
+    sub = run_substrate_path()
+    k4_launches = k4.csr_spmv.launches
+    k5_launches = k5.histogram.launches
+    print("substrate path:", json.dumps(sub), flush=True)
+    if (k4_launches, k5_launches) != (sub["k4_calls"], sub["k5_calls"]) or (
+        0 in (k4_launches, k5_launches)
+    ):
+        raise AssertionError(
+            f"substrate path launched K4 {k4_launches} and K5 {k5_launches} "
+            f"times for {sub['k4_calls']} and {sub['k5_calls']} calls"
+        )
+
+    # 7. speculation path, with the wave kernel's count read around it
+    kernel.wave_loop.launches = 0
+    t0 = time.perf_counter()
+    spec_rows, spec_segments = run_spec_path()
+    spec_launches = kernel.wave_loop.launches
+    print("speculation path:", json.dumps({
+        "wave_launches": spec_launches, "host_s": time.perf_counter() - t0,
+    }), flush=True)
+    if spec_launches == 0 or spec_launches != spec_segments:
+        raise AssertionError(f"speculation path: {spec_launches} wave "
+                             f"launches for {spec_segments} segments")
+
+    # 8. streaming path, with the wave kernel's count read around it
+    kernel.wave_loop.launches = 0
+    t0 = time.perf_counter()
+    stream_rows, stream_segments = run_stream_path()
+    stream_launches = kernel.wave_loop.launches
+    print("streaming path:", json.dumps({
+        "wave_launches": stream_launches, "host_s": time.perf_counter() - t0,
+    }), flush=True)
+    if stream_launches == 0 or stream_launches != stream_segments:
+        raise AssertionError(f"streaming path: {stream_launches} wave "
+                             f"launches for {stream_segments} segments")
+
+    # 9. simulate, with the wave kernel's count read around it
     kernel.wave_loop.launches = 0
     sim_rows, sim_segments = run_simulate()
     if kernel.wave_loop.launches != sim_segments:
         raise AssertionError("simulate phase: wave launches != segments")
+    spec_sim = run_spec_simulate()
     summary = {
         "simulate_host_s": sum(r["host_s"] for r in sim_rows),
         "FUS2_vs_STA_hmean": _hmean([r["fus2_vs_sta"] for r in sim_rows]),
         "FUS2_vs_LSQ_hmean": _hmean([r["fus2_vs_lsq"] for r in sim_rows]),
         "wave_launches": sim_segments,
+        "spec_simulate_host_s": sum(r["host_s"] for r in spec_sim),
     }
     print("simulate:", json.dumps(summary), flush=True)
 
-    # 7. result lines
+    # 10. result lines
     wave_entry = {
         "name": "wave_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/wave_exec/csrc/wave_exec.cu",
@@ -566,8 +971,38 @@ def main() -> int:
         "library": "none: no single torch call forwards",
         "shape": {k: fw[k] for k in ("S", "D", "M", "lookback", "hits")},
     }
+    spmv_entry = {
+        "name": "csr_spmv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csr_spmv/csrc/csr_spmv.cu",
+        "replaces": "src/repro/kernels/csr_spmv/kernel.py:24",
+        "launches": k4_launches,
+        "tolerance": "bit-exact (torch.equal) against the plain version; "
+                     "cuSPARSE within 2*gamma_(W+3)*|A||x|",
+        "max_abs_err": sp["max_abs_err"],
+        "ms": sp["ms"], "plain_ms": sp["plain_ms"],
+        "bound_ms": sp["bound_ms"], "bound_by": "bytes",
+        "library_ms": sp["library_ms"],
+        "library": "torch.mv on a sparse CSR tensor (cuSPARSE)",
+        "library_max_abs_err": sp["library_max_abs_err"],
+        "shape": {k: sp[k] for k in ("N", "M", "W", "nnz")},
+    }
+    hist_entry = {
+        "name": "histogram", "route": "cuda",
+        "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
+        "replaces": "src/repro/kernels/histogram/kernel.py:22",
+        "launches": k5_launches,
+        "tolerance": "bit-exact (torch.equal on float32 counts)",
+        "max_abs_err": max(hi["max_abs_err"], hi_global["max_abs_err"]),
+        "ms": hi["ms"], "plain_ms": hi["plain_ms"],
+        "bound_ms": hi["bound_ms"], "bound_by": "bytes",
+        "library_ms": hi["library_ms"],
+        "library": "torch.bincount on the in-range data",
+        "shape": {k: hi[k] for k in ("N", "n_bins", "dropped", "path")},
+        "global_path": hi_global,
+    }
     print(_card_line())
-    print(json.dumps({"kernels": [wave_entry, hazard_entry, forward_entry]}))
+    print(json.dumps({"kernels": [wave_entry, hazard_entry, forward_entry,
+                                  spmv_entry, hist_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -14,8 +14,11 @@ Ported so far: the wave executor's main path,
 from LoopIR to final arrays, with the wave-step kernel
 (``kernels/wave_exec``); the DU primitives on the hazard frontier and
 forwarding kernels (``kernels/du_hazard``, ``kernels/fused_stream``)
-with the WavePlan cross-checks built on them (``crosschecks``); and the
+with the WavePlan cross-checks built on them (``crosschecks``); the
 cycle simulator, ``core.simulator.simulate`` (numpy on the host, as in
-the reference). Entry points run on the card (``device="cuda"``) unless
-the caller asks for the CPU, as the tests do.
+the reference); the speculative AGU (``core.speculate``) and cross-PE
+FIFO streaming on both entry points; and the substrate ops on the ELL
+SpMV and histogram kernels (``kernels/csr_spmv``,
+``kernels/histogram``). Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU, as the tests do.
 """

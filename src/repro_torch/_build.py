@@ -36,6 +36,8 @@ SOURCES = {
     "wave_exec": "kernels/wave_exec/csrc/wave_exec.cu",
     "du_hazard": "kernels/du_hazard/csrc/du_hazard.cu",
     "fused_stream": "kernels/fused_stream/csrc/fused_stream.cu",
+    "csr_spmv": "kernels/csr_spmv/csrc/csr_spmv.cu",
+    "histogram": "kernels/histogram/csrc/histogram.cu",
 }
 
 NVCC_FLAGS = (

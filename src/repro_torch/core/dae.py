@@ -60,14 +60,6 @@ SPECULATION_MODES = ("off", "auto")
 # component predictor.
 PREDICTORS = ("last", "stride", "context", "auto")
 
-# The speculative AGU (``core/speculate.py`` in the JAX package) is not
-# part of this package yet; every site that would route a speculative
-# PE to it raises ``NotImplementedError`` with this message.
-SPECULATE_NOT_PORTED = (
-    "the speculative AGU (core/speculate.py) is not ported to repro_torch "
-    "yet: ROADMAP.md queue 1, item 8 (speculation and streaming)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class SpecInfo:

@@ -1,9 +1,7 @@
 """Vectorized event-driven simulator engine (``simulate(engine="event")``).
 
 The port's copy of ``core/engine_event.py`` in the JAX package (numpy on
-the host, as there). Phantom traffic of the speculative AGU is not
-ported: opening an epoch gate raises ``NotImplementedError``
-(``dae.SPECULATE_NOT_PORTED``).
+the host, as there).
 
 The reference engine (core/simulator.Engine) steps Python once per
 cycle: every port re-evaluates its scalar Hazard Safety Check every
@@ -748,7 +746,12 @@ class EventEngine:
             return
         self.gate_time[gid] = self.now
         self.dirty.update(self.gate_ports.get(gid, ()))
-        raise NotImplementedError(daelib.SPECULATE_NOT_PORTED)
+        from repro_torch.core import speculate as speclib
+
+        self.channel_free_at = speclib.fire_phantoms(
+            self.spec, gid, self.now, self.channel_free_at,
+            self.burst_size, self.p.channel_occupancy, self.result,
+        )
 
     # -- ACK frontier -----------------------------------------------------
 

@@ -279,11 +279,13 @@ def build_wave_plan(
     ``trace_mode != "interp"`` additionally builds op/addr/kind streams
     through the trace compiler and asserts they agree with the walk.
 
-    ``speculation="auto"`` marks loss-of-decoupling programs
-    (load-dependent trips/addresses, DESIGN.md §10) for the speculative
-    AGU, which is not ported yet: such programs raise
-    ``NotImplementedError`` (``dae.SPECULATE_NOT_PORTED``).
-    ``predictor`` (``dae.PREDICTORS``) is accepted for API uniformity.
+    ``speculation="auto"`` admits loss-of-decoupling programs
+    (load-dependent trips/addresses, DESIGN.md §10): the wave partition
+    works off the *true* post-squash request stream — phantom squash
+    traffic is a DU-timing artifact and has no wave-executor analogue.
+    ``predictor`` (``dae.PREDICTORS``) is accepted for API uniformity
+    with ``simulate()``: the post-squash streams are identical under
+    every predictor, so the emitted plan does not depend on it.
 
     ``batch_waves`` (default on) coarsens the wave partition into
     batched steps (WavePlan contract 5); ``False`` keeps one step per
@@ -465,11 +467,19 @@ def build_wave_plan(
                 fifo_loop_hook(loop, phase, reader)
 
     if dae.spec:
-        raise NotImplementedError(daelib.SPECULATE_NOT_PORTED)
-    ir.interpret(
-        program, arrays, params, trace_hook=hook,
-        aux_exprs=aux_exprs, aux_hook=aux_hook, loop_hook=loop_hook,
-    )
+        # speculative programs get the documented auto-reject
+        # (DESIGN.md §10) through the shared conversion site
+        from repro_torch.core import speculate
+
+        speculate.interpret_hooked(
+            program, arrays, params, hook,
+            aux_exprs=aux_exprs, aux_hook=aux_hook,
+        )
+    else:
+        ir.interpret(
+            program, arrays, params, trace_hook=hook,
+            aux_exprs=aux_exprs, aux_hook=aux_hook, loop_hook=loop_hook,
+        )
 
     if trace_mode != "interp":
         req_op_l, req_addr_l, req_store_l = _trace_stream(
@@ -1070,9 +1080,13 @@ def execute(
     bit-identical to ``loopir.interpret`` for every Table-1 kernel in
     both trace modes.
 
-    ``speculation="auto"`` programs that need the speculative AGU raise
-    ``NotImplementedError`` (``dae.SPECULATE_NOT_PORTED``); ``predictor``
-    is accepted for API uniformity.
+    ``speculation="auto"`` admits loss-of-decoupling programs
+    (load-dependent trips/addresses, DESIGN.md §10): the wave partition
+    works off the *true* post-squash request stream — phantom squash
+    traffic is a DU-timing artifact and has no wave-executor analogue.
+    ``predictor`` (``dae.PREDICTORS``) is accepted for API uniformity:
+    final arrays and the wave partition are identical under every
+    predictor.
 
     ``batch_waves`` (default on) lets both backends execute batched
     conflict-free wave runs as single steps (WavePlan contract 5);

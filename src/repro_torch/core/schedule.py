@@ -156,17 +156,27 @@ def trace_program(
     dict as ``report`` to receive, per PE id, ``{"path": "compiled" |
     "interp" | "speculative", "reason": None | str, "op_affine": {...}}``.
 
-    PEs marked speculative by ``dae.decouple(speculation="auto")`` need
-    the speculative AGU (``core/speculate.py``), which this package does
-    not have yet: ``"compiled"`` raises ``TraceCompileError`` for them
-    and the other modes raise ``NotImplementedError``
-    (``dae.SPECULATE_NOT_PORTED``). ``spec_out``, ``oracle_loads``,
-    ``predictor`` and ``spec_runahead`` keep the reference signature;
-    a list passed as ``spec_out`` receives ``None``.
+    PEs marked speculative by ``dae.decouple(speculation="auto")`` are
+    routed to the speculative AGU (``speculate.trace_spec_pe``) under
+    ``"auto"``/``"interp"`` — its run-ahead is inherently interpretive,
+    so ``"compiled"`` raises ``TraceCompileError`` for them. Pass a list
+    as ``spec_out`` to receive the accumulated ``speculate.SpecPlan``
+    (appended once; ``None`` when no PE speculates) — the engines
+    consume it for epoch gating and squash traffic (DESIGN.md §10).
+    ``oracle_loads`` optionally supplies the per-op oracle load streams
+    the speculative AGU predicts against (callers that already ran a
+    hooked ``loopir.interpret`` — validation, the wave executor — pass
+    theirs to avoid a second sequential walk); when
+    absent and a PE speculates, one hooked run happens here.
+    ``predictor`` (``dae.PREDICTORS``) and ``spec_runahead``
+    (``SimParams.spec_runahead``; ``None`` = the speculate default)
+    parameterize the built ``SpecPlan`` — they move gates and phantom
+    traffic only, never the request streams.
     """
     assert mode in TRACE_MODES, f"unknown trace mode {mode!r}"
     params = params or {}
     out: dict[str, OpTrace] = {}
+    spec_plan = None
     for pe in dae.pes:
         if pe.id in dae.spec:
             if mode == "compiled":
@@ -176,7 +186,36 @@ def trace_program(
                     f"speculative streams are interpreter-built; use "
                     f"trace_mode='auto'"
                 )
-            raise NotImplementedError(daelib.SPECULATE_NOT_PORTED)
+            from repro_torch.core import speculate
+
+            if spec_plan is None:
+                assert predictor in daelib.PREDICTORS, (
+                    f"unknown predictor {predictor!r} "
+                    f"(choose from {daelib.PREDICTORS})"
+                )
+                spec_plan = speculate.SpecPlan(
+                    predictor=predictor,
+                    runahead=(
+                        speculate.DEFAULT_RUNAHEAD
+                        if spec_runahead is None
+                        else int(spec_runahead)
+                    ),
+                )
+                if oracle_loads is None:
+                    oracle_loads = speculate.oracle_load_streams(
+                        program, arrays, params
+                    )
+            t = speculate.trace_spec_pe(
+                pe, dae.spec[pe.id], arrays, params, oracle_loads, spec_plan
+            )
+            if report is not None:
+                report[pe.id] = {
+                    "path": "speculative",
+                    "reason": "; ".join(dae.spec[pe.id].reasons),
+                    "op_affine": {},
+                }
+            out.update(t.ops)
+            continue
         path, reason, cls = "interp", None, None
         if mode != "interp" and pe.fifo_in:
             # cross-PE FIFO consumers (DESIGN.md §11): streamed locals are
@@ -215,7 +254,7 @@ def trace_program(
             }
         out.update(t.ops)
     if spec_out is not None:
-        spec_out.append(None)
+        spec_out.append(spec_plan)
     return out
 
 

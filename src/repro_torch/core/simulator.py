@@ -1,10 +1,8 @@
 """Cycle-level simulator of the four evaluated systems (paper §7.1).
 
 The port's copy of ``core/simulator.py`` in the JAX package: numpy on
-the host, as there, with the same modes, engines, timing model and
-results. The speculative AGU (``core/speculate.py`` there) is not
-ported yet: a program with a speculative PE raises
-``NotImplementedError`` (``dae.SPECULATE_NOT_PORTED``).
+the host, as there, with the same modes, engines, timing model,
+speculative AGU and results.
 
 Modes:
   * ``STA``  — static HLS baseline: leaf-loop *instances* execute in
@@ -802,7 +800,12 @@ class Engine:
         if self.gate_time[gid] <= self.now:
             return
         self.gate_time[gid] = self.now
-        raise NotImplementedError(daelib.SPECULATE_NOT_PORTED)
+        from repro_torch.core import speculate as speclib
+
+        self.channel_free_at = speclib.fire_phantoms(
+            self.spec, gid, self.now, self.channel_free_at,
+            self.burst_size, self.p.channel_occupancy, self.result,
+        )
 
     def _ack_prefix(self, port: dulib.Port):
         if (
@@ -938,11 +941,15 @@ def simulate(
 
     ``speculation`` selects the loss-of-decoupling policy (DESIGN.md
     §10): ``"off"`` (default) raises ``dae.LossOfDecoupling`` when an
-    AGU depends on a protected load value; ``"auto"`` marks such AGUs
-    for the speculative run-ahead AGU, which this package does not have
-    yet: a program with a speculative PE raises ``NotImplementedError``
-    (``dae.SPECULATE_NOT_PORTED``). ``predictor`` (``dae.PREDICTORS``)
-    is accepted for API uniformity.
+    AGU depends on a protected load value; ``"auto"`` builds a
+    speculative run-ahead AGU instead — value prediction, epoch
+    tagging, rollback-free squash through the §6 valid-bit path — and
+    opens load-dependent-trip/address kernels. ``predictor``
+    (``dae.PREDICTORS``: ``"last"`` | ``"stride"`` | ``"context"`` |
+    ``"auto"``) picks the speculative AGU's value predictor; the
+    run-ahead window is ``SimParams.spec_runahead``. Final arrays stay
+    bit-identical to the sequential oracle under every setting — the
+    predictor only moves epoch gates and phantom traffic.
 
     ``static_prune`` lets the symbolic dependence certifier
     (``analysis/deps.py``, DESIGN.md §12) drop hazard pairs whose
@@ -981,9 +988,11 @@ def simulate(
     spec_out: list = []
     oracle_loads: Optional[dict[str, list[float]]] = None
     if comp.dae.spec:
-        # the speculative AGU (core/speculate.py in the JAX package)
-        # predicts against the oracle's load streams; not ported yet
-        raise NotImplementedError(daelib.SPECULATE_NOT_PORTED)
+        # the speculative AGU predicts against the oracle's load
+        # streams; compute them once and share with validation below
+        from repro_torch.core import speculate
+
+        oracle_loads = speculate.oracle_load_streams(program, arrays, params)
     traces = schedlib.trace_program(
         program, comp.dae, arrays, params, mode=trace_mode,
         spec_out=spec_out, oracle_loads=oracle_loads,

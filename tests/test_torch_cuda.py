@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA kernels (wave steps, hazard
-frontier, forwarding) against their plain torch versions, the main path
-on the card against the oracle, and the DU-kernel cross-checks of a
-WavePlan on the card.
+frontier, forwarding, ELL SpMV, histogram) against their plain torch
+versions, the main path on the card against the oracle (a speculative
+and a streaming program included), the substrate ops, and the DU-kernel
+cross-checks of a WavePlan on the card.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips itself (with the reason) where no CUDA device is
@@ -18,11 +19,16 @@ from repro_torch.core import executor, loopir as ir, programs
 from repro_torch.crosschecks import FORWARD_PROGRAM, WAVE_PAIRS
 from repro_torch.crosschecks import frontier_crosschecks
 from repro_torch.kernels import wave_exec
+from repro_torch.kernels.csr_spmv import kernel as k4
+from repro_torch.kernels.csr_spmv.ops import csr_spmv_ref, spmv_from_csr
+from repro_torch.kernels.dynloop import ref as dynloop
 from repro_torch.kernels.du_hazard import kernel as k2
 from repro_torch.kernels.du_hazard.ref import hazard_frontier_batch_ref
 from repro_torch.kernels.fused_stream import kernel as k3
 from repro_torch.kernels.fused_stream.ops import fused_raw_loops, min_lookback
 from repro_torch.kernels.fused_stream.ref import fused_stream_ref
+from repro_torch.kernels.histogram import kernel as k5
+from repro_torch.kernels.histogram.ops import hist_add, histogram_ref
 from repro_torch.kernels.wave_exec import kernel
 from repro_torch.kernels.wave_exec.ref import random_tables, wave_loop_ref
 
@@ -183,3 +189,87 @@ def test_frontier_crosschecks_on_card(cuda, name):
     forwards = int(name == FORWARD_PROGRAM)
     assert k2.hazard_frontier_batch.launches - n2 == 1
     assert k3.fused_stream.launches - n3 == forwards
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_pad,w,m", [(8, 1, 5), (1000, 16, 3001),
+                                       (384, 37, 70)])
+def test_csr_spmv_kernel_matches_plain(cuda, n_pad, w, m, dtype):
+    """Bit for bit: clipped columns (negative and past ``M``), widths
+    below, at and above one staged tile, a ragged last row block."""
+    rng = np.random.default_rng(n_pad + w)
+    cols = torch.from_numpy(
+        rng.integers(-3, m + 3, (n_pad, w)).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(
+        rng.standard_normal((n_pad, w)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+    before = k4.csr_spmv.launches
+    got = k4.csr_spmv(cols, vals, x, block_r=8)
+    want = csr_spmv_ref(cols, vals, x)
+    torch.cuda.synchronize()
+    assert k4.csr_spmv.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+    empty = k4.csr_spmv(cols[:0], vals[:0], x)
+    assert empty.shape == (0,) and k4.csr_spmv.launches == before + 1
+
+
+@pytest.mark.parametrize("n,bins,block", [
+    (100, 16, 32), (2**20 + 3, 32, 512), (2**18, 2**16, 256), (5, 1, 64),
+])
+def test_histogram_kernel_matches_plain(cuda, n, bins, block):
+    """Bit for bit on the shared-memory path and, above
+    ``MAX_SHARED_BINS``, the global-memory path; bins outside
+    ``[0, n_bins)`` are dropped."""
+    rng = np.random.default_rng(n)
+    d = rng.integers(-2, bins + 2, n).astype(np.int32)
+    d[:3] = (-1, -bins - 1, 2**31 - 1)[:n]
+    d_d = torch.from_numpy(d).to(cuda)
+    before = k5.histogram.launches
+    got = k5.histogram(d_d, n_bins=bins, block=block)
+    want = histogram_ref(d_d, n_bins=bins)
+    torch.cuda.synchronize()
+    assert k5.histogram.launches == before + 1
+    assert torch.equal(got, want)
+    assert got.sum().item() == ((d >= 0) & (d < bins)).sum()
+    assert (bins > k5.MAX_SHARED_BINS) == (bins == 2**16)
+
+
+def test_substrate_ops_on_card_match_the_cpu(cuda):
+    rng = np.random.default_rng(12)
+    deg = rng.integers(0, 9, 300)
+    rp = np.concatenate([[0], np.cumsum(deg)])
+    ci = rng.integers(0, 300, int(rp[-1]))
+    vv = rng.standard_normal(int(rp[-1]))
+    x = rng.standard_normal(300)
+    d1, d2 = rng.integers(-1, 33, 999), rng.integers(0, 32, 999)
+    n4, n5 = k4.csr_spmv.launches, k5.histogram.launches
+    y = spmv_from_csr(rp, ci, vv, x, block_r=64)
+    h = hist_add(d1, d2, n_bins=32)
+    assert y.device.type == h.device.type == "cuda"
+    assert (k4.csr_spmv.launches - n4, k5.histogram.launches - n5) == (1, 2)
+    assert torch.equal(y.cpu(), spmv_from_csr(rp, ci, vv, x, block_r=64,
+                                              device="cpu"))
+    assert torch.equal(h.cpu(), hist_add(d1, d2, n_bins=32, device="cpu"))
+
+
+@pytest.mark.parametrize("name,scale,kw", [
+    ("bfs_front", 48, {"speculation": "auto"}),
+    ("stream_dot", 12, {"fifo_depth": 2}),
+])
+def test_speculative_and_streaming_programs_on_card(cuda, name, scale, kw):
+    prog, arrays, params = programs.get(name).make(scale)
+    before = kernel.wave_loop.launches
+    res = executor.execute(prog, arrays, params, backend="torch", **kw)
+    assert kernel.wave_loop.launches - before == res.run.n_segments > 0
+    oracle = ir.interpret(prog, arrays, params)
+    for k in oracle:
+        assert res.arrays[k].tobytes() == oracle[k].tobytes(), f"{name}: {k}"
+    if name == "bfs_front":
+        _, visit = dynloop.bfs_front_ref(arrays["off0"], arrays["front"],
+                                         arrays["nodeval"],
+                                         len(arrays["visit"]))
+        assert res.arrays["visit"].tobytes() == visit.tobytes()
+    else:
+        out = dynloop.stream_dot_ref(arrays["a"], arrays["bv"],
+                                     arrays["out"], params["nb"], params["k"])
+        assert res.arrays["out"].tobytes() == out.tobytes()

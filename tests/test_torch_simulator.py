@@ -156,10 +156,12 @@ def test_frontier_crosschecks_match_reference(name):
 
 @pytest.mark.parametrize("mode", ["STA", "FUS2"])
 @pytest.mark.parametrize("name", ref_programs.SPEC_KERNELS)
-def test_speculative_programs_raise_not_ported(name, mode):
+def test_speculative_programs_need_speculation(name, mode):
+    """Without ``speculation="auto"`` a loss-of-decoupling program is
+    refused, as in the reference; with it, it runs
+    (``test_torch_speculation.py``)."""
     prog, arrays, params = programs.get(name).make(scale(name))
-    with pytest.raises(NotImplementedError, match="speculative AGU"):
-        simulator.simulate(prog, arrays, params, mode=mode,
-                           speculation="auto")
-    with pytest.raises(dae.LossOfDecoupling):
+    with pytest.raises(dae.LossOfDecoupling, match="loss of decoupling"):
         simulator.simulate(prog, arrays, params, mode=mode)
+    with pytest.raises(dae.LossOfDecoupling):
+        executor.build_wave_plan(prog, arrays, params)

@@ -243,11 +243,3 @@ def test_empty_program():
                            device="cpu")
     assert res.stats.n_requests == 0 and res.stats.n_waves == 0
     np.testing.assert_array_equal(res.arrays["a"], np.zeros(4))
-
-
-@pytest.mark.parametrize("name", ref_programs.SPEC_KERNELS)
-def test_speculative_programs_not_ported_yet(name):
-    prog, arrays, params = programs.get(name).make(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        executor.execute(prog, arrays, params, speculation="auto",
-                         backend="torch", device="cpu")
