@@ -8,8 +8,9 @@ failure exits non-zero:
 
 1. device — the card's name, power limit and compute capability
    (must be 9.0);
-2. build  — every kernel of the port (K1-K5) compiled with ``nvcc``
-   (sm_90a), one process per source, all started together;
+2. build  — every kernel of the port (K1-K7, six sources) compiled
+   with ``nvcc`` (sm_90a), one process per source, all started
+   together; each one's registers and shared memory printed;
 3. kernel — each kernel against its plain torch version on the card,
    bit for bit, on seeded inputs, timed with CUDA events (20 launches
    after a warm-up) beside its bound:
@@ -28,7 +29,13 @@ failure exits non-zero:
    one cuSPARSE product (``torch.mv`` on a sparse CSR tensor); the
    histogram kernel (K5) at N=2**26 with 32 bins (about 1% of the data
    -1 and 1% past the last bin) beside ``torch.bincount``, and at
-   N=2**24 with 2**16 bins on its global-memory path;
+   N=2**24 with 2**16 bins on its global-memory path; the flash
+   attention kernel (K6) at qwen3-14b's heads (H=40 over Hk=8, D=128),
+   causal at S=4096, and a ragged non-causal case (S=1000) in the
+   reference's layout; the decode attention kernel (K7) at batch 32 over
+   a cache of 8192 positions (frontiers seeded in [1, 8192]; then one
+   row at lengths 0); both within a stated float32 bound of their plain
+   versions, beside ``scaled_dot_product_attention``;
 4. main path — the nine Table-1 programs at ``--scale-mult 8`` through
    ``executor.execute(..., backend="torch")`` on the card, each final
    array bit-identical to the port's sequential oracle, plus one
@@ -63,7 +70,14 @@ failure exits non-zero:
    speedups of FUS2 over STA and LSQ, and host seconds; then the
    speculative programs at 8x in STA and in FUS2 under each predictor,
    cycles equal to the reference's;
-10. the card line, the ``{"kernels": [...]}`` line, and last
+10. serve path — qwen3-14b at full width and depth (40 layers, float32,
+    59.07 GB of weights drawn on the card from a seed): the prefill
+    step's last-token logits (40 K6 launches) against 128 teacher-forced
+    decode steps (5120 K7 launches) within the reference's
+    decode-against-forward tolerance, then ``serve_batch`` for 4 prompts
+    of 128 tokens and 32 new ones (6400 K7 launches); prefill seconds,
+    decode ms per step beside its bytes bound, tokens/s, peak memory;
+11. the card line, the ``{"kernels": [...]}`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where no CUDA device is present, and
@@ -135,6 +149,25 @@ SPEC_CYCLES = {
                      "context": 446694, "auto": 4006},
 }
 FIFO_DEPTHS = (1, 2, 4)
+# attention at qwen3-14b's head geometry: K6 at a prefill length, K7 over
+# a cache of 8192 positions (launch/shapes.py's decode_32k, batch 128 and
+# 32768 positions, cut to batch 32 and 8192)
+K6_B, K6_H, K6_HK, K6_S, K6_D = 1, 40, 8, 4096, 128
+K6R_BH, K6R_S = 40, 1000  # the ragged non-causal case, reference layout
+K7_B, K7_H, K7_HK, K7_C, K7_D = 32, 40, 8, 8192, 128
+# kernel against plain version, float32: the sums run in another order
+# (tiles of 64 keys, fmaf) over at most a few thousand terms of size ~1,
+# so the outputs (convex combinations of N(0, 1) values) differ by ~1e-6;
+# 1e-4 is the reference's own bound for Pallas against its oracle
+ATTN_ATOL = 1e-4
+FP32_LANES_PER_SM = 128  # Hopper: FP32 FMA lanes per SM
+# the serve path: qwen3-14b at full width and depth in float32, as
+# serve.main computes max_seq
+SERVE_ARCH, SERVE_B, SERVE_P, SERVE_NEW = "qwen3-14b", 4, 128, 32
+SERVE_MAX_SEQ = SERVE_P + SERVE_NEW + 1
+# logits of prefill against teacher-forced decode: the reference's own
+# tolerance for decode against forward (tests/test_arch_smoke.py)
+SERVE_ATOL, SERVE_RTOL = 2e-3, 1e-3
 
 
 def _smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -155,6 +188,15 @@ def _int32_ops_per_s() -> float:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(_smi("clocks.max.sm", "csv,noheader,nounits"))
     return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def _f32_flops_per_s() -> float:
+    """The card's peak float32 rate outside the tensor cores: SMs x 128
+    FMA lanes x 2 flops x the maximum SM clock, both read from the card
+    (67 TFLOP/s on the H100 SXM's data sheet)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return sms * FP32_LANES_PER_SM * 2 * mhz * 1e6
 
 
 def _wave_bytes(writes: np.ndarray) -> int:
@@ -473,6 +515,319 @@ def check_histogram_kernel(seed, n, bins):
         # the data read once, the histogram written once
         "bound_ms": (n * 4 + bins * 4) / HBM_BYTES_PER_S * 1e3,
     }
+
+
+def _randn(g, *shape):
+    return torch.randn(shape, generator=g, device="cuda")
+
+
+def _within(got, want, what, atol=ATTN_ATOL) -> float:
+    err = float((got.float() - want.float()).abs().max().item())
+    if not err <= atol:
+        raise AssertionError(f"{what}: max abs err {err} above {atol}")
+    return err
+
+
+def check_flash_kernel():
+    """K6 against its plain versions on the card: at qwen3-14b's heads
+    (H=40 over Hk=8, D=128) causal in the model's layout, against
+    ``flash_mha``'s blocked loop, at S=4096 and at the serve path's
+    prefill (B=SERVE_B, S=SERVE_P); a ragged non-causal case
+    (S=S_kv=1000, no tile divides it) in the reference's layout, against
+    the full-score oracle. Within ``ATTN_ATOL`` each; timed (at S=4096)
+    beside
+    ``scaled_dot_product_attention`` (a yardstick the port never calls)
+    and the operations bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention.ref import (flash_attention_ref,
+                                                   flash_gqa_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = _randn(g, K6_B, K6_S, K6_H, K6_D)
+    k, v = (_randn(g, K6_B, K6_S, K6_HK, K6_D) for _ in "kv")
+    got = kernel.flash_attention_gqa(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = _within(got, flash_gqa_ref(q, k, v, causal=True), "K6 causal")
+    qs = _randn(g, SERVE_B, SERVE_P, K6_H, K6_D)
+    ks, vs = (_randn(g, SERVE_B, SERVE_P, K6_HK, K6_D) for _ in "kv")
+    got_s = kernel.flash_attention_gqa(qs, ks, vs, causal=True)
+    torch.cuda.synchronize()
+    err_s = _within(got_s, flash_gqa_ref(qs, ks, vs, causal=True),
+                    "K6 causal at the serve path's prefill shape")
+    qr, kr, vr = (_randn(g, K6R_BH, K6R_S, K6_D) for _ in "qkv")
+    scale = K6_D ** -0.5
+    got_r = kernel.flash_attention(qr, kr, vr, causal=False, sm_scale=scale)
+    torch.cuda.synchronize()
+    err_r = _within(got_r, flash_attention_ref(qr, kr, vr, causal=False,
+                                               sm_scale=scale),
+                    "K6 ragged non-causal")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2) - got).abs().max().item())
+    pairs = K6_S * (K6_S + 1) // 2  # causal (query, key) pairs
+    flops = 4 * K6_B * K6_H * K6_D * pairs
+    nbytes = 4 * K6_B * K6_S * K6_D * (2 * K6_H + 2 * K6_HK)
+    return {
+        "B": K6_B, "H": K6_H, "Hk": K6_HK, "S": K6_S, "D": K6_D,
+        "causal": True, "dtype": "float32",
+        "max_abs_err": max(err, err_s, err_r), "causal_max_abs_err": err,
+        "serve_shape": {"B": SERVE_B, "S": SERVE_P, "max_abs_err": err_s},
+        "ragged_noncausal": {"BH": K6R_BH, "S": K6R_S, "S_kv": K6R_S,
+                             "D": K6_D, "max_abs_err": err_r},
+        "library_max_abs_err": lib_err,
+        "ms": _time_ms(lambda: kernel.flash_attention_gqa(q, k, v), REPS),
+        "plain_ms": _time_ms(lambda: flash_gqa_ref(q, k, v), 3),
+        "library_ms": _time_ms(lib, REPS),
+        "gflop": flops / 1e9,
+        "bound_ms": max(flops / _f32_flops_per_s(),
+                        nbytes / HBM_BYTES_PER_S) * 1e3,
+        "tf32_bound_ms": flops / 495e12 * 1e3,
+    }
+
+
+def check_decode_kernel():
+    """K7 against its plain version on the card at qwen3-14b's heads over
+    a cache of C=8192 positions, batch 32, frontiers seeded in [1, C]
+    with 1 and C among them; then one row with nothing committed
+    (lengths 0: the uniform average of the whole cache); then at the
+    serve path's shape (B=SERVE_B over SERVE_MAX_SEQ positions, which no
+    64-key tile divides) at every frontier the path reaches, 1 to
+    SERVE_P + SERVE_NEW. Within ``ATTN_ATOL``; timed (at C=8192) beside ``scaled_dot_product_attention`` with a
+    boolean frontier mask and the bytes bound of the committed rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention.ref import decode_gqa_ref
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = _randn(g, K7_B, K7_H, K7_D)
+    kc, vc = (_randn(g, K7_B, K7_C, K7_HK, K7_D) for _ in "kv")
+    lengths = torch.randint(1, K7_C + 1, (K7_B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = 1, K7_C
+    scale = K7_D ** -0.5
+    run = lambda lens: kernel.decode_attention_gqa(  # noqa: E731
+        q, kc, vc, lens, sm_scale=scale)
+    got = run(lengths)
+    torch.cuda.synchronize()
+    err = _within(got, decode_gqa_ref(q, kc, vc, lengths, sm_scale=scale),
+                  "K7")
+    empty = lengths.clone()
+    empty[2] = 0
+    got_0 = run(empty)
+    torch.cuda.synchronize()
+    err_0 = _within(got_0, decode_gqa_ref(q, kc, vc, empty, sm_scale=scale),
+                    "K7 with a row at lengths 0")
+    rep = K7_H // K7_HK
+    uniform = vc[2].mean(dim=0).repeat_interleave(rep, dim=0)
+    _within(got_0[2], uniform, "K7 lengths 0 against the cache's mean")
+    qs = _randn(g, SERVE_B, K7_H, K7_D)
+    ks, vs = (_randn(g, SERVE_B, SERVE_MAX_SEQ, K7_HK, K7_D) for _ in "kv")
+    err_s = 0.0
+    for t in range(1, SERVE_P + SERVE_NEW + 1):
+        lens = torch.full((SERVE_B,), t, dtype=torch.int32, device="cuda")
+        got_s = kernel.decode_attention_gqa(qs, ks, vs, lens, sm_scale=scale)
+        err_s = max(err_s, _within(
+            got_s, decode_gqa_ref(qs, ks, vs, lens, sm_scale=scale),
+            f"K7 at the serve path's shape, frontier {t}"))
+    mask = (torch.arange(K7_C, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    lib_err = float((lib()[:, :, 0] - got).abs().max().item())
+    committed = int(lengths.clamp(max=K7_C).sum().item())
+    nbytes = 4 * (committed * K7_HK * K7_D * 2 + 2 * K7_B * K7_H * K7_D)
+    return {
+        "B": K7_B, "H": K7_H, "Hk": K7_HK, "C": K7_C, "D": K7_D,
+        "dtype": "float32", "committed_rows": committed,
+        "lengths_min_max": [int(lengths.min()), int(lengths.max())],
+        "max_abs_err": max(err, err_0, err_s), "lengths0_max_abs_err": err_0,
+        "serve_shape": {"B": SERVE_B, "C": SERVE_MAX_SEQ,
+                        "frontiers": [1, SERVE_P + SERVE_NEW],
+                        "max_abs_err": err_s},
+        "library_max_abs_err": lib_err,
+        "ms": _time_ms(lambda: run(lengths), REPS),
+        "plain_ms": _time_ms(
+            lambda: decode_gqa_ref(q, kc, vc, lengths, sm_scale=scale), 5),
+        "library_ms": _time_ms(lib, REPS),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def _param_bytes(params) -> int:
+    return sum(_param_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in params.values())
+
+
+def profile_decode(step, params, cfg, tok, n_steps=4):
+    """``n_steps`` decode steps at the serve path's last frontier, run
+    twice from the same state: first without the profiler (the host
+    clock of the steps), then under ``torch.profiler`` (their kernels).
+    Returns the device's busy share (the traced kernel time over the
+    profiler-free wall time of the same steps; None where the profiler
+    reports no device time), the kernel launches per step and per
+    layer, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as L, transformer as T
+
+    cache = T.init_cache(cfg, SERVE_B, SERVE_MAX_SEQ, L.FP32, device="cuda")
+    start = SERVE_P + SERVE_NEW - n_steps
+
+    def run():
+        c = cache
+        lens = torch.full((SERVE_B,), start, dtype=torch.int32,
+                          device="cuda")
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            _, c, lens = step(params, tok, c, lens)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()  # warm-up
+    wall = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_traced = run()
+    # kernel rows only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
+    return {
+        "steps": n_steps, "wall_ms_per_step": wall / n_steps * 1e3,
+        "traced_wall_ms_per_step": wall_traced / n_steps * 1e3,
+        "kernel_ms_per_step": busy_us / n_steps / 1e3,
+        "device_busy_share": busy_us * 1e-6 / wall if busy_us else None,
+        "kernels_per_step": launches / n_steps,
+        "kernels_per_layer_step": launches / n_steps / cfg.n_layers,
+        "top_kernels_ms_per_step": [(k[:80], us / n_steps / 1e3, n / n_steps)
+                                    for k, us, n in rows[:6]],
+    }
+
+
+def run_serve_path():
+    """qwen3-14b at full width and depth in float32 on the card, weights
+    drawn from a seeded generator. (a) ``make_prefill_step``'s last-token
+    logits (one K6 launch per layer) against the same prompts fed by
+    teacher-forced ``make_serve_step`` (one K7 launch per layer and
+    step), within the reference's decode-against-forward tolerance; (b)
+    ``serve_batch`` for ``SERVE_NEW`` tokens, its first tokens equal to
+    (a)'s argmax wherever the top-2 margin exceeds twice the tolerance.
+    Returns the result dict with the launches of each run."""
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import layers as L, transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get(SERVE_ARCH)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, cfg, L.FP32, device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(3, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
+                            device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": SERVE_B, "prompt_len": SERVE_P, "max_new": SERVE_NEW,
+           "max_seq": SERVE_MAX_SEQ, "dtype": "float32",
+           "init_s": time.perf_counter() - t0,
+           "param_bytes": _param_bytes(params)}
+
+    # (a) prefill against teacher-forced decode
+    kernel.flash_attention.launches = 0
+    kernel.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    fwd, _ = steps.make_prefill_step(cfg, L.FP32, max_seq=SERVE_MAX_SEQ)(
+        params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_k6_launches"] = kernel.flash_attention.launches
+    out["prefill_k7_launches"] = kernel.decode_attention.launches
+    step = steps.make_serve_step(cfg, L.FP32)
+    cache = T.init_cache(cfg, SERVE_B, SERVE_MAX_SEQ, L.FP32, device=dev)
+    lens = torch.zeros(SERVE_B, dtype=torch.int32, device=dev)
+    kernel.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    for t in range(SERVE_P):
+        dec, cache, lens = step(params, prompts[:, t:t + 1], cache, lens)
+    torch.cuda.synchronize()
+    out["teacher_forced_s"] = time.perf_counter() - t0
+    out["teacher_forced_k7_launches"] = kernel.decode_attention.launches
+    del cache
+    if not (torch.isfinite(fwd).all() and torch.isfinite(dec).all()):
+        raise AssertionError("serve path: non-finite logits")
+    diff = (dec - fwd).abs()
+    tol = SERVE_ATOL + SERVE_RTOL * fwd.abs()
+    out["forward_vs_decode"] = {
+        "max_abs_err": float(diff.max().item()),
+        "max_rel_err": float((diff / fwd.abs().clamp(min=1e-6)).max().item()),
+        "max_err_over_tol": float((diff / tol).max().item()),
+        "top1_agree": float((dec.argmax(-1) == fwd.argmax(-1)).float()
+                            .mean().item()),
+        "logit_abs_max": float(fwd.abs().max().item()),
+    }
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"prefill and teacher-forced decode logits "
+                             f"differ: {out['forward_vs_decode']}")
+
+    # (b) serve_batch
+    kernel.flash_attention.launches = 0
+    kernel.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve.serve_batch(cfg, params, prompts, max_new=SERVE_NEW,
+                             max_seq=SERVE_MAX_SEQ)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    out["serve_k6_launches"] = kernel.flash_attention.launches
+    out["serve_k7_launches"] = kernel.decode_attention.launches
+    if toks.shape != (SERVE_B, SERVE_NEW) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"serve_batch returned {tuple(toks.shape)} "
+                             f"tokens or tokens out of range")
+    top = torch.topk(dec, 2, dim=-1).values
+    sure = (top[:, 0] - top[:, 1]) > 2 * (SERVE_ATOL
+                                          + SERVE_RTOL * top[:, 0].abs())
+    first = dec.argmax(-1).to(torch.int32)
+    if not bool((toks[:, 0] == first)[sure].all()):
+        raise AssertionError("serve_batch's first tokens differ from the "
+                             "teacher-forced argmax")
+    steps_run = SERVE_P + SERVE_NEW
+    # per step: every weight but the embedding table (4 rows gathered),
+    # the committed cache rows of every layer read, one row written
+    weights = out["param_bytes"] - params["embed"].numel() * 4
+    row = cfg.n_kv_heads * cfg.resolved_head_dim * 4 * 2 * cfg.n_layers
+    cache_rows = sum(SERVE_B * (t + 1) for t in range(steps_run))
+    bound_s = (steps_run * (weights + SERVE_B * cfg.d_model * 4)
+               + row * (cache_rows + SERVE_B * steps_run)) / HBM_BYTES_PER_S
+    out.update({
+        "serve_s": serve_s, "serve_steps": steps_run,
+        "decode_ms_per_step": serve_s / steps_run * 1e3,
+        "decode_bound_ms_per_step": bound_s / steps_run * 1e3,
+        "generated_tokens_per_s": SERVE_B * SERVE_NEW / serve_s,
+        "step_tokens_per_s": SERVE_B * steps_run / serve_s,
+        "first_tokens_checked": int(sure.sum().item()),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens_head": toks[:2, :8].tolist(),
+    })
+    out["decode_profile"] = profile_decode(step, params, cfg, toks[:, -1:])
+    expect = {"prefill_k6_launches": cfg.n_layers, "prefill_k7_launches": 0,
+              "teacher_forced_k7_launches": cfg.n_layers * SERVE_P,
+              "serve_k6_launches": 0,
+              "serve_k7_launches": cfg.n_layers * steps_run}
+    got = {k: out[k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"serve path launches {got}, expected {expect}")
+    return out
 
 
 def sequential_raw_ref(src, val, valid, dst, memory):
@@ -839,6 +1194,10 @@ def main() -> int:
     hi_global = check_histogram_kernel(10, K5G_N, K5G_BINS)
     print("histogram kernel, global-memory path:", json.dumps(hi_global),
           flush=True)
+    fl = check_flash_kernel()
+    print("flash attention kernel:", json.dumps(fl), flush=True)
+    de = check_decode_kernel()
+    print("decode attention kernel:", json.dumps(de), flush=True)
 
     # 4. main path, with the wave kernel's count read around it alone
     kernel.wave_loop.launches = 0
@@ -924,7 +1283,12 @@ def main() -> int:
     }
     print("simulate:", json.dumps(summary), flush=True)
 
-    # 10. result lines
+    # 10. serve path, with the K6 and K7 counts read around each run
+    sv = run_serve_path()
+    print("serve path:", json.dumps(sv), flush=True)
+    torch.cuda.empty_cache()
+
+    # 11. result lines
     wave_entry = {
         "name": "wave_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/wave_exec/csrc/wave_exec.cu",
@@ -1000,9 +1364,49 @@ def main() -> int:
         "shape": {k: hi[k] for k in ("N", "n_bins", "dropped", "path")},
         "global_path": hi_global,
     }
+    flash_entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:88",
+        "launches": sv["prefill_k6_launches"],
+        "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
+                     "version (float32; the sum order differs)",
+        "max_abs_err": fl["max_abs_err"],
+        "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": "operations",
+        "tf32_bound_ms": fl["tf32_bound_ms"],
+        "library_ms": fl["library_ms"],
+        "library": "scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+        "library_max_abs_err": fl["library_max_abs_err"],
+        "shape": {k: fl[k] for k in ("B", "H", "Hk", "S", "D", "causal")},
+        "ragged_noncausal": fl["ragged_noncausal"],
+        "serve_shape": fl["serve_shape"],
+    }
+    decode_entry = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:153",
+        "launches": sv["serve_k7_launches"],
+        "teacher_forced_launches": sv["teacher_forced_k7_launches"],
+        "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
+                     "version (float32; the sum order differs)",
+        "max_abs_err": de["max_abs_err"],
+        "ms": de["ms"], "plain_ms": de["plain_ms"],
+        "bound_ms": de["bound_ms"], "bound_by": "bytes",
+        "library_ms": de["library_ms"],
+        "library": "scaled_dot_product_attention with a boolean frontier "
+                   "mask, enable_gqa=True",
+        "library_max_abs_err": de["library_max_abs_err"],
+        "shape": {k: de[k] for k in ("B", "H", "Hk", "C", "D",
+                                     "committed_rows")},
+        "lengths0_max_abs_err": de["lengths0_max_abs_err"],
+        "serve_shape": de["serve_shape"],
+    }
     print(_card_line())
     print(json.dumps({"kernels": [wave_entry, hazard_entry, forward_entry,
-                                  spmv_entry, hist_entry]}))
+                                  spmv_entry, hist_entry, flash_entry,
+                                  decode_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of the dynamic-loop-fusion system (``repro``).
 
 The package mirrors the JAX package's layout — ``core/``,
-``analysis/``, ``kernels/`` — so each module's counterpart sits at the
+``analysis/``, ``kernels/``, ``configs/``, ``models/``, ``launch/`` — so each module's counterpart sits at the
 same relative path. It imports ``torch`` and numpy, never ``jax`` and
 nothing of ``repro``: host logic that is numpy in the reference (the
 AGU/CU compiler front-end, the WavePlan builder) is a copy of it here,
@@ -19,6 +19,8 @@ cycle simulator, ``core.simulator.simulate`` (numpy on the host, as in
 the reference); the speculative AGU (``core.speculate``) and cross-PE
 FIFO streaming on both entry points; and the substrate ops on the ELL
 SpMV and histogram kernels (``kernels/csr_spmv``,
-``kernels/histogram``). Entry points run on the card
+``kernels/histogram``); and the LM serving path for dense GQA decoders
+(``configs``, ``models``, ``launch.serve``) on the flash and decode
+attention kernels (``kernels/attention``). Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU, as the tests do.
 """

@@ -38,6 +38,7 @@ SOURCES = {
     "fused_stream": "kernels/fused_stream/csrc/fused_stream.cu",
     "csr_spmv": "kernels/csr_spmv/csrc/csr_spmv.cu",
     "histogram": "kernels/histogram/csrc/histogram.cu",
+    "attention": "kernels/attention/csrc/attention.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,0 +1,12 @@
+"""moonshot-v1-16b-a3b [moe]: Moonlight-style 64 experts top-6 with
+shared experts. [hf:moonshotai/Moonlight-16B-A3B; hf]"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="moonshot-v1-16b-a3b", family="moe",
+    n_layers=48, d_model=2048, n_heads=16, n_kv_heads=16,
+    d_ff=1408, vocab=163840, head_dim=128,
+    attn_type="gqa", rope_theta=5e4,
+    n_experts=64, top_k=6, moe_d_ff=1408, n_shared_experts=2,
+    gated=True, act="silu",
+))

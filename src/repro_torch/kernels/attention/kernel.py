@@ -1,0 +1,247 @@
+"""Flash attention (K6) and KV-cache decode attention (K7), on the card.
+
+The port of the TPU kernels ``src/repro/kernels/attention/kernel.py``
+(``_flash_kernel`` through ``flash_attention``, ``_decode_kernel``
+through ``decode_attention``), written by hand in CUDA C++ for
+``sm_90a`` (``csrc/attention.cu``; the design notes and the bounds are
+there). Each kernel has two entries:
+
+- the reference's signature, ``(BH, S, d)`` tensors:
+  ``flash_attention`` and ``decode_attention``, which the tests hold
+  against the Pallas kernels;
+- the model's layout, ``(B, S, H, D)`` queries over ``(B, S_kv, Hk, D)``
+  keys and values with query head ``h`` on kv head ``h // (H // Hk)``:
+  ``flash_attention_gqa`` (called by ``models.flash.flash_mha``) and
+  ``decode_attention_gqa`` (called by ``transformer._decode_gqa``).
+
+Sizes are run-time: no block has to divide S or S_kv (the reference
+asserts it). ``block_q`` and ``block_k`` are kept for the reference's
+signature and change nothing: the CUDA kernel's tiles are fixed, and the
+plain versions compute the full scores.
+
+On a CUDA tensor each entry launches its kernel, built from source at
+first use (``repro_torch._build``), and raises on any build or launch
+failure. Only tensors on the CPU, which the tests pass, go to the plain
+versions in ``ref.py``. ``flash_attention.launches`` and
+``decode_attention.launches`` count the launches of K6 and K7 through
+either entry.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch import _build
+from repro_torch.kernels.attention.ref import (
+    decode_attention_ref,
+    decode_gqa_ref,
+    flash_attention_ref,
+    flash_gqa_ref,
+)
+
+MAX_HEAD_DIM = 256  # kMaxD in csrc/attention.cu
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_INT32_MAX = 2**31 - 1
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
+                                           i, f, p]
+    lib.flash_attention_launch.restype = i
+    lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
+                                            f, p]
+    lib.decode_attention_launch.restype = i
+    lib.attention_error_string.argtypes = [i]
+    lib.attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _device(what, *tensors) -> torch.device:
+    """The one device of ``tensors``: the CPU or a CUDA device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev
+
+
+def _check_cuda(what, *tensors):
+    dt = tensors[0].dtype
+    if dt not in _DTYPES or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{what}: q, k and v must share one of float32, "
+                        f"float16, bfloat16; got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.numel() > _INT32_MAX for t in tensors):
+        raise ValueError(f"{what}: tensors must hold < 2**31 elements")
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + _lib().attention_error_string(rc).decode())
+
+
+def _check_heads(what, h, hk, d, dk, dv):
+    if hk < 1 or h % hk:
+        raise ValueError(f"{what}: {h} query heads do not group over {hk} "
+                         f"kv heads")
+    if not d == dk == dv:
+        raise ValueError(f"{what}: q, k and v head dims differ ({d}, {dk}, "
+                         f"{dv})")
+
+
+def _launch_flash(q, k, v, causal, sm_scale):
+    """K6 on contiguous ``(B, S, H, D)`` / ``(B, S_kv, Hk, D)`` CUDA
+    tensors; the output is ``(B, S, H, D)`` in q's dtype."""
+    what = "flash_attention"
+    _check_cuda(what, q, k, v)
+    b, s, h, d = q.shape
+    s_kv, hk = k.shape[1], k.shape[2]
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if s_kv == 0:
+        raise ValueError(f"{what}: no keys to attend to")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _lib().flash_attention_launch(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, s_kv, h, hk, d, int(bool(causal)),
+            float(sm_scale), stream,
+        )
+    _raise_on(rc, what)
+    flash_attention.launches += 1
+    return out
+
+
+def _launch_decode(q, k_cache, v_cache, lengths, sm_scale):
+    """K7 on contiguous q ``(B, H, D)`` and caches ``(B, C, Hk, D)`` CUDA
+    tensors, frontier ``lengths`` ``(B,)``; the output is ``(B, H, D)``."""
+    what = "decode_attention"
+    _check_cuda(what, q, k_cache, v_cache)
+    b, h, d = q.shape
+    cap, hk = k_cache.shape[1], k_cache.shape[2]
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if cap == 0:
+        raise ValueError(f"{what}: the cache has no entries")
+    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    q = q.contiguous()
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _lib().decode_attention_launch(
+            _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(), b, cap, h,
+            hk, d, float(sm_scale), stream,
+        )
+    _raise_on(rc, what)
+    decode_attention.launches += 1
+    return out
+
+
+def _check_blocks(*blocks):
+    if any(int(x) < 1 for x in blocks):
+        raise ValueError(f"blocks must be positive, got {blocks}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
+                    block_q: int = 128, block_k: int = 128):
+    """``(BH, S, d)`` queries over ``(BH, S_kv, d)`` keys and values →
+    ``(BH, S, d)`` in q's dtype (the reference's signature)."""
+    _check_blocks(block_q, block_k)
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash_attention: q, k, v must be (BH, S, d)")
+    if not (q.shape[0] == k.shape[0] == v.shape[0]
+            and k.shape[1] == v.shape[1]):
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} disagree")
+    _check_heads("flash_attention", 1, 1, q.shape[2], k.shape[2], v.shape[2])
+    if _device("flash_attention", q, k, v).type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    return _launch_flash(q[:, :, None], k[:, :, None], v[:, :, None],
+                         causal, sm_scale)[:, :, 0]
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_block: int = 512, kv_block: int = 512):
+    """``flash_mha``'s function: q ``(B, S, H, D)`` over k, v
+    ``(B, S_kv, Hk, D)``, scale ``D**-0.5`` → ``(B, S, H, D)``. On the
+    card ``window > 0`` (sliding-window attention) is not ported yet and
+    raises ``NotImplementedError``; on the CPU the plain version takes
+    it. ``q_block``/``kv_block`` are the plain version's blocks."""
+    _check_blocks(q_block, kv_block)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or (
+            k.shape[:3] != v.shape[:3]):
+        raise ValueError("flash_attention_gqa: q must be (B, S, H, D) and "
+                         "k, v (B, S_kv, Hk, D)")
+    if q.shape[0] != k.shape[0]:
+        raise ValueError("flash_attention_gqa: batch sizes differ")
+    _check_heads("flash_attention_gqa", q.shape[2], k.shape[2], q.shape[3],
+                 k.shape[3], v.shape[3])
+    if _device("flash_attention_gqa", q, k, v).type == "cpu":
+        return flash_gqa_ref(q, k, v, causal=causal, window=int(window),
+                             q_block=q_block, kv_block=kv_block)
+    if window:
+        raise NotImplementedError(
+            "flash_attention_gqa: sliding-window attention on the card is "
+            "not ported yet (ROADMAP queue 1, item 12d)")
+    return _launch_flash(q, k, v, causal, q.shape[3] ** -0.5)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float = 1.0,
+                     block_k: int = 128):
+    """``(BH, 1, d)`` queries against ``(BH, S_max, d)`` caches masked at
+    ``pos < lengths[bh]`` → ``(BH, 1, d)`` (the reference's signature)."""
+    _check_blocks(block_k)
+    if q.dim() != 3 or q.shape[1] != 1 or k_cache.dim() != 3:
+        raise ValueError("decode_attention: q must be (BH, 1, d) and the "
+                         "caches (BH, S_max, d)")
+    if not (q.shape[0] == k_cache.shape[0] == lengths.shape[0]
+            and k_cache.shape == v_cache.shape):
+        raise ValueError("decode_attention: shapes disagree")
+    _check_heads("decode_attention", 1, 1, q.shape[2], k_cache.shape[2],
+                 v_cache.shape[2])
+    if _device("decode_attention", q, k_cache, v_cache, lengths).type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lengths,
+                                    sm_scale=sm_scale)
+    return _launch_decode(q, k_cache[:, :, None], v_cache[:, :, None],
+                          lengths, sm_scale)
+
+
+decode_attention.launches = 0
+
+
+def decode_attention_gqa(q, k_cache, v_cache, lengths, *, sm_scale: float):
+    """One query per head, q ``(B, H, D)``, against caches
+    ``(B, C, Hk, D)`` masked at ``pos < lengths[b]`` → ``(B, H, D)``.
+    Rows with ``lengths <= 0`` average the whole cache, as the reference
+    does."""
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError("decode_attention_gqa: q must be (B, H, D) and the "
+                         "caches (B, C, Hk, D)")
+    if not q.shape[0] == k_cache.shape[0] == lengths.shape[0]:
+        raise ValueError("decode_attention_gqa: batch sizes differ")
+    _check_heads("decode_attention_gqa", q.shape[1], k_cache.shape[2],
+                 q.shape[2], k_cache.shape[3], v_cache.shape[3])
+    if _device("decode_attention_gqa", q, k_cache, v_cache,
+               lengths).type == "cpu":
+        return decode_gqa_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
+    return _launch_decode(q, k_cache, v_cache, lengths, sm_scale)

@@ -1,0 +1,97 @@
+"""Serving: batched prefill + decode with the monotonic KV-cache
+frontier (DESIGN.md §3.2).
+
+The port of ``src/repro/launch/serve.py``. The cache ``lengths`` vector
+is the per-sequence RAW frontier — append (store at t) / attend (load
+<= t) — and each decode step advances every frontier by one; on the
+card each step launches the decode kernel K7 once per layer. Greedy
+sampling, for determinism.
+
+Run on the card (``PYTHONPATH=src``)::
+
+    python -m repro_torch.launch.serve --arch qwen3-14b --batch 4 \\
+        --prompt-len 128 --max-new 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import base as configs
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def serve_batch(cfg, params, prompts, *, max_new: int, max_seq: int,
+                dt=L.FP32):
+    """prompts: ``(B, P)`` int token ids on the params' device. Returns
+    the generated tokens ``(B, max_new)`` int32.
+
+    As in the reference, the prompt is fed by teacher-forced decode, one
+    step per position (``prefill`` returns an empty cache), and every
+    position is fed, zero pads included (the reference computes the
+    nonzero-prefix lengths and never uses them; ROADMAP queue 3)."""
+    b, p_len = prompts.shape
+    dev = prompts.device
+    cache = T.init_cache(cfg, b, max_seq, dt, device=dev)
+    serve_step = steps_lib.make_serve_step(cfg, dt)
+
+    lens = torch.zeros(b, dtype=torch.int32, device=dev)
+    for t in range(p_len):
+        logits, cache, lens = serve_step(params, prompts[:, t:t + 1], cache,
+                                         lens)
+
+    out = []
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    for _ in range(max_new):
+        out.append(tok)
+        logits, cache, lens = serve_step(params, tok, cache, lens)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the plain versions, "
+                         "for tests)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights; the prompts take seed + 1")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device, "serve")
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dt = L.FP32
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = T.init_params(gen, cfg, dt, device=dev)
+    gen.manual_seed(args.seed + 1)
+    prompts = torch.randint(3, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen, device=dev, dtype=torch.int32)
+
+    t0 = time.time()
+    toks = serve_batch(
+        cfg, params, prompts, max_new=args.max_new,
+        max_seq=args.prompt_len + args.max_new + 1,
+    )
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt_s = time.time() - t0
+    print(f"arch={cfg.name} generated {tuple(toks.shape)} in {dt_s:.1f}s")
+    print(toks[:2].cpu())
+    return toks
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels (wave steps, hazard
-frontier, forwarding, ELL SpMV, histogram) against their plain torch
-versions, the main path on the card against the oracle (a speculative
+frontier, forwarding, ELL SpMV, histogram, flash and decode attention)
+against their plain torch versions, a reduced qwen3-14b's prefill and
+decode step on the card against the CPU, the main path on the card against the oracle (a speculative
 and a streaming program included), the substrate ops, and the DU-kernel
 cross-checks of a WavePlan on the card.
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import base as configs
 from repro_torch.core import executor, loopir as ir, programs
 from repro_torch.crosschecks import FORWARD_PROGRAM, WAVE_PAIRS
 from repro_torch.crosschecks import frontier_crosschecks
@@ -31,6 +33,14 @@ from repro_torch.kernels.histogram import kernel as k5
 from repro_torch.kernels.histogram.ops import hist_add, histogram_ref
 from repro_torch.kernels.wave_exec import kernel
 from repro_torch.kernels.wave_exec.ref import random_tables, wave_loop_ref
+from repro_torch.kernels.attention import kernel as attn
+from repro_torch.kernels.attention.ref import (
+    decode_attention_ref,
+    decode_gqa_ref,
+    flash_attention_ref,
+    flash_gqa_ref,
+)
+from repro_torch.models import convert, layers as L, transformer as T
 
 pytestmark = pytest.mark.cuda
 
@@ -273,3 +283,119 @@ def test_speculative_and_streaming_programs_on_card(cuda, name, scale, kw):
         out = dynloop.stream_dot_ref(arrays["a"], arrays["bv"],
                                      arrays["out"], params["nb"], params["k"])
         assert res.arrays["out"].tobytes() == out.tobytes()
+
+
+# attention: float32 against the plain versions within 1e-4 (the sum
+# order differs; the reference's own bound for Pallas against its
+# oracle); bfloat16 inputs within 2e-2, about two bfloat16 steps of
+# outputs below 2 in size, since both round one float32 result
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _randn(seed, *shape, device, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device, dtype)
+
+
+@pytest.mark.parametrize("s,s_kv,d,causal", [
+    (64, 64, 32, True), (128, 128, 16, False), (1000, 1000, 128, False),
+    (70, 70, 256, True), (33, 90, 64, True),
+])
+def test_flash_attention_kernel_matches_plain(cuda, s, s_kv, d, causal):
+    q = _randn(1, 4, s, d, device=cuda)
+    k, v = _randn(2, 4, s_kv, d, device=cuda), _randn(3, 4, s_kv, d,
+                                                      device=cuda)
+    before = attn.flash_attention.launches
+    got = attn.flash_attention(q, k, v, causal=causal, sm_scale=d ** -0.5,
+                               block_q=16, block_k=16)
+    want = flash_attention_ref(q, k, v, causal=causal, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_kernel_matches_plain(cuda, dtype):
+    """qwen3-14b's heads (40 over 8, D=128) at a ragged S=300."""
+    b, s, h, hk, d = 2, 300, 40, 8, 128
+    q = _randn(4, b, s, h, d, device=cuda, dtype=dtype)
+    k = _randn(5, b, s, hk, d, device=cuda, dtype=dtype)
+    v = _randn(6, b, s, hk, d, device=cuda, dtype=dtype)
+    before = attn.flash_attention.launches
+    got = attn.flash_attention_gqa(q, k, v, causal=True)
+    want = flash_gqa_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        attn.flash_attention_gqa(q, k, v, window=16)
+    assert attn.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("lengths", [[1, 17, 33, 64], [0, 17, 33, 64]])
+def test_decode_attention_kernel_matches_plain(cuda, lengths):
+    q = _randn(7, 4, 1, 32, device=cuda)
+    kc, vc = _randn(8, 4, 64, 32, device=cuda), _randn(9, 4, 64, 32,
+                                                       device=cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = attn.decode_attention.launches
+    got = attn.decode_attention(q, kc, vc, lens, sm_scale=0.2, block_k=16)
+    want = decode_attention_ref(q, kc, vc, lens, sm_scale=0.2)
+    torch.cuda.synchronize()
+    assert attn.decode_attention.launches == before + 1
+    assert got.shape == q.shape
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+    if lengths[0] == 0:  # the uniform average of the whole cache
+        assert torch.allclose(got[0, 0], vc[0].mean(dim=0), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_gqa_kernel_matches_plain(cuda, dtype):
+    """40 query heads over 8 kv heads, frontiers at 0, inside, at and
+    past the cache's 200 positions."""
+    b, h, hk, c, d = 4, 40, 8, 200, 128
+    q = _randn(10, b, h, d, device=cuda, dtype=dtype)
+    kc = _randn(11, b, c, hk, d, device=cuda, dtype=dtype)
+    vc = _randn(12, b, c, hk, d, device=cuda, dtype=dtype)
+    lens = torch.tensor([0, 5, 200, 250], dtype=torch.int32, device=cuda)
+    before = attn.decode_attention.launches
+    got = attn.decode_attention_gqa(q, kc, vc, lens, sm_scale=d ** -0.5)
+    want = decode_gqa_ref(q, kc, vc, lens, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert attn.decode_attention.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+def test_reduced_qwen3_on_card_matches_the_cpu(cuda):
+    """One prefill and one decode step of a reduced qwen3-14b on the card
+    (K6 and K7, one launch per layer) against the same on the CPU (the
+    plain versions), at the reference's decode tolerance."""
+    cfg = configs.get("qwen3-14b").reduced()
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                        device="cpu")
+    card = convert.from_reference(convert.to_numpy(cpu), device=cuda)
+    tok = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 24)))
+    n6 = attn.flash_attention.launches
+    got, _ = T.prefill(card, tok.to(cuda), cfg, L.FP32)
+    want, _ = T.prefill(cpu, tok, cfg, L.FP32)
+    assert attn.flash_attention.launches - n6 == cfg.n_layers
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+
+    rng = np.random.default_rng(4)
+    shape = (cfg.n_layers, 2, 32, cfg.n_kv_heads, cfg.resolved_head_dim)
+    ck, cv = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              for _ in "kv")
+    lengths = torch.tensor([3, 7], dtype=torch.int32)
+    n7 = attn.decode_attention.launches
+    got, got_c = T.decode_step(card, tok[:, :1].to(cuda),
+                               {"kv": (ck.to(cuda), cv.to(cuda))},
+                               lengths.to(cuda), cfg, L.FP32)
+    want, want_c = T.decode_step(cpu, tok[:, :1], {"kv": (ck, cv)}, lengths,
+                                 cfg, L.FP32)
+    assert attn.decode_attention.launches - n7 == cfg.n_layers
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+    for a, b in zip(got_c["kv"], want_c["kv"]):
+        assert torch.allclose(a.cpu(), b, atol=2e-3, rtol=1e-3)

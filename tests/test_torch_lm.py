@@ -1,0 +1,326 @@
+"""The port's LM serving path (``repro_torch.configs``, ``models``,
+``launch``) against the JAX package's, on the CPU.
+
+Both packages compute with the same weights: the reference's
+``init_params`` draws them and ``models/convert.py`` carries them across
+bit for bit. Inputs are made with numpy from a seed. The model checks use
+the reference's own tolerance for decode against forward,
+``atol=2e-3, rtol=1e-3`` (``tests/test_arch_smoke.py``): the two packages
+sum in different orders, and the flash loop and the decode attention
+differ from each other in the same way.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as ref_configs
+from repro.launch import serve as ref_serve
+from repro.models import layers as ref_L
+from repro.models import transformer as ref_T
+from repro_torch.configs import base as configs
+from repro_torch.kernels.attention import kernel as attn_kernel
+from repro_torch.launch import serve, steps
+from repro_torch.models import convert, layers as L, transformer as T
+
+TOL = dict(atol=2e-3, rtol=1e-3)
+SERVED = ["qwen3-14b", "starcoder2-7b", "internvl2-76b"]
+NOT_SERVED = {
+    "falcon-mamba-7b": "12b", "zamba2-7b": "12b",
+    "phi3.5-moe-42b-a6.6b": "12c", "moonshot-v1-16b-a3b": "12c",
+    "minicpm3-4b": "12d", "gemma3-4b": "12d", "whisper-tiny": "12d",
+}
+
+
+@functools.cache
+def _models(name):
+    """(reference cfg, reference params, port cfg, port params) of the
+    reduced ``name``, with the same weights."""
+    cfg_r = ref_configs.get(name).reduced()
+    params_r = ref_T.init_params(jax.random.PRNGKey(0), cfg_r, ref_L.FP32)
+    params = convert.from_reference(jax.tree.map(np.asarray, params_r),
+                                    device="cpu")
+    return cfg_r, params_r, configs.get(name).reduced(), params
+
+
+def _tokens(seed, cfg, b, s):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)
+
+
+def _frontend(cfg, b):
+    if cfg.frontend != "vision":
+        return None
+    return (np.random.default_rng(7).standard_normal(
+        (b, cfg.frontend_len, cfg.d_model)) * 0.02).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+def test_registry_names_match():
+    assert configs.all_names() == ref_configs.all_names()
+    assert len(configs.all_names()) == 10
+
+
+@pytest.mark.parametrize("name", ref_configs.all_names())
+def test_arch_config_matches_reference(name):
+    for mine, theirs in ((configs.get(name), ref_configs.get(name)),
+                         (configs.get(name).reduced(),
+                          ref_configs.get(name).reduced())):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        assert mine.n_params() == theirs.n_params()
+        assert mine.n_active_params() == theirs.n_active_params()
+        for prop in ("resolved_head_dim", "is_moe", "is_attention_free",
+                     "supports_long_context"):
+            assert getattr(mine, prop) == getattr(theirs, prop), prop
+
+
+def test_qwen3_14b_size():
+    """The card run's model: 14.77 B parameters, 59.07 GB in float32."""
+    cfg = configs.get("qwen3-14b")
+    assert cfg.n_params() == 14_767_882_240
+    assert cfg.n_params() * 4 / 1e9 == pytest.approx(59.07, abs=0.005)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.vocab) == (
+        40, 5120, 40, 8, 128, 17408, 151936)
+
+
+# ---------------------------------------------------------------------------
+# layers and the weight carry-over
+# ---------------------------------------------------------------------------
+
+
+def test_rms_norm_and_rope_match_reference():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    scale = rng.standard_normal(16).astype(np.float32) * 0.1
+    pos = np.arange(5)[None, :].repeat(2, 0).astype(np.int32) + 11
+    np.testing.assert_allclose(
+        L.rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-6),
+        ref_L.rms_norm(jnp.asarray(x), jnp.asarray(scale), 1e-6),
+        atol=1e-6, rtol=1e-6)
+    for theta in (1e4, 1e5, 1e6):
+        np.testing.assert_allclose(
+            L.rope(torch.from_numpy(x), torch.from_numpy(pos)[:, :, None],
+                   theta),
+            ref_L.rope(jnp.asarray(x), jnp.asarray(pos)[:, :, None], theta),
+            atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "starcoder2-7b"])
+def test_mlp_matches_reference(name):
+    """SwiGLU (qwen3) and the tanh-approximated GELU MLP (starcoder2)."""
+    cfg_r, params_r, cfg, params = _models(name)
+    x = np.random.default_rng(2).standard_normal(
+        (2, 4, cfg.d_model)).astype(np.float32)
+    lp_r = jax.tree.map(lambda a: a[0], params_r["layers"]["mlp"])
+    lp = T.layer_params(params["layers"], 0)["mlp"]
+    np.testing.assert_allclose(
+        L.mlp_apply(lp, torch.from_numpy(x), cfg),
+        ref_L.mlp_apply(lp_r, jnp.asarray(x), cfg_r), atol=1e-5, rtol=1e-5)
+
+
+def test_convert_round_trips_bit_for_bit():
+    _, params_r, cfg, params = _models("qwen3-14b")
+    want = jax.tree.map(np.asarray, params_r)
+    got = convert.to_numpy(params)
+    flat_w = jax.tree_util.tree_leaves_with_path(want)
+    flat_g = jax.tree_util.tree_leaves_with_path(got)
+    assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
+    for (_, a), (_, b) in zip(flat_w, flat_g):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    assert params["layers"]["attn"]["wq"].shape == (
+        cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_init_params_has_the_reference_structure(name):
+    cfg_r, params_r, cfg, _ = _models(name)
+    mine = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                         device="cpu")
+    want = jax.tree_util.tree_leaves_with_path(params_r)
+    got = jax.tree_util.tree_leaves_with_path(convert.to_numpy(mine))
+    assert [(p, a.shape, str(a.dtype)) for p, a in want] == [
+        (p, a.shape, str(a.dtype)) for p, a in got]
+    wq = mine["layers"]["attn"]["wq"]
+    assert not torch.equal(wq[0], wq[1])  # each layer drawn anew
+    std = wq.std().item() * cfg.d_model ** 0.5
+    assert 0.9 < std < 1.1
+    again = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                          device="cpu")
+    assert torch.equal(again["embed"], mine["embed"])
+
+
+# ---------------------------------------------------------------------------
+# the model against the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_forward_and_prefill_match_reference(name):
+    cfg_r, params_r, cfg, params = _models(name)
+    b, s = 2, 24
+    tok = _tokens(3, cfg, b, s)
+    fe = _frontend(cfg, b)
+    want = ref_T.forward_hidden(params_r, jnp.asarray(tok), cfg_r, ref_L.FP32,
+                                frontend=None if fe is None
+                                else jnp.asarray(fe))
+    got = T.forward_hidden(params, torch.from_numpy(tok), cfg, L.FP32,
+                           frontend=None if fe is None
+                           else torch.from_numpy(fe))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    want_l, want_c = ref_T.prefill(params_r, jnp.asarray(tok), cfg_r,
+                                   ref_L.FP32, max_seq=40)
+    prefill_step = steps.make_prefill_step(cfg, L.FP32, max_seq=40)
+    got_l, got_c = prefill_step(params, {"tokens": torch.from_numpy(tok)})
+    assert got_l.shape == (b, cfg.vocab)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **TOL)
+    # the reference's prefill returns a fresh cache; so does the port's
+    for a, c in zip(want_c["kv"], got_c["kv"]):
+        assert c.shape == a.shape and not c.any()
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_decode_step_matches_reference(name):
+    cfg_r, params_r, cfg, params = _models(name)
+    b, cap = 2, 32
+    rng = np.random.default_rng(4)
+    shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
+    ck, cv = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
+    lengths = np.array([3, 7], np.int32)
+    tok = _tokens(5, cfg, b, 1)
+    want_l, want_c = ref_T.decode_step(
+        params_r, jnp.asarray(tok), {"kv": (jnp.asarray(ck), jnp.asarray(cv))},
+        jnp.asarray(lengths), cfg_r, ref_L.FP32)
+    cache = {"kv": (torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()))}
+    got_l, got_c = T.decode_step(params, torch.from_numpy(tok), cache,
+                                 torch.from_numpy(lengths), cfg, L.FP32)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **TOL)
+    for mine, theirs, before in zip(got_c["kv"], want_c["kv"], (ck, cv)):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), **TOL)
+        changed = (mine.numpy() != before).any(axis=(0, 3, 4))
+        assert changed.tolist() == [[i == 3 for i in range(cap)],
+                                    [i == 7 for i in range(cap)]]
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_teacher_forced_decode_matches_forward(name):
+    """Decode over the prompt, one token a step, gives the forward pass's
+    last-token logits, in the port and against the reference's forward."""
+    cfg_r, params_r, cfg, params = _models(name)
+    b, s = 2, 12
+    tok = _tokens(6, cfg, b, s)
+    ref_logits, _ = ref_T.prefill(params_r, jnp.asarray(tok), cfg_r,
+                                  ref_L.FP32)
+    fwd, _ = T.prefill(params, torch.from_numpy(tok), cfg, L.FP32)
+    serve_step = steps.make_serve_step(cfg, L.FP32)
+    cache = T.init_cache(cfg, b, 16, L.FP32, device="cpu")
+    lens = torch.zeros(b, dtype=torch.int32)
+    for t in range(s):
+        logits, cache, lens = serve_step(params, torch.from_numpy(
+            tok[:, t:t + 1]), cache, lens)
+    assert lens.tolist() == [s, s]
+    np.testing.assert_allclose(logits.numpy(), fwd.numpy(), **TOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **TOL)
+
+
+def test_serve_batch_tokens_match_reference():
+    """Greedy tokens equal the reference's. Equality means something only
+    where the step's top-2 logit margin exceeds twice the logit
+    tolerance, so the margins along the reference's own greedy path are
+    computed first (teacher-forced through the port), and each row's
+    tokens are held equal up to its first step below that margin (the
+    whole row where there is none)."""
+    cfg_r, params_r, cfg, params = _models("qwen3-14b")
+    b, p, max_new = 2, 8, 8
+    prompts = _tokens(8, cfg, b, p)
+    prompts[0, -2:] = 0  # zero pads are fed as tokens, as the reference does
+    want = np.asarray(ref_serve.serve_batch(
+        cfg_r, params_r, jnp.asarray(prompts), max_new=max_new,
+        max_seq=p + max_new + 1))
+    step = steps.make_serve_step(cfg, L.FP32)
+    cache = T.init_cache(cfg, b, p + max_new + 1, L.FP32, device="cpu")
+    lens = torch.zeros(b, dtype=torch.int32)
+    feed = np.concatenate([prompts, want], axis=1)
+    sure = np.zeros((b, max_new), bool)  # margin above twice the tolerance
+    for t in range(p + max_new - 1):
+        logits, cache, lens = step(params, torch.from_numpy(feed[:, t:t + 1]),
+                                   cache, lens)
+        if t >= p - 1:
+            top = torch.topk(logits, 2, dim=-1).values
+            tol = TOL["atol"] + TOL["rtol"] * top[:, 0].abs()
+            sure[:, t - p + 1] = (top[:, 0] - top[:, 1] > 2 * tol).numpy()
+    checked = [int(np.argmin(r)) if not r.all() else max_new for r in sure]
+    assert min(checked) >= max_new // 2, sure  # most of each row is decided
+    got = serve.serve_batch(cfg, params, torch.from_numpy(prompts),
+                            max_new=max_new, max_seq=p + max_new + 1)
+    assert got.dtype == torch.int32 and got.shape == (b, max_new)
+    for row, n in enumerate(checked):
+        assert got[row, :n].tolist() == want[row, :n].tolist(), row
+
+
+def test_serve_main_runs_on_the_cpu():
+    before = attn_kernel.decode_attention.launches
+    toks = serve.main(["--arch", "starcoder2-7b", "--reduced", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "4",
+                       "--max-new", "3", "--seed", "5"])
+    assert toks.shape == (2, 3) and toks.device.type == "cpu"
+    assert ((toks >= 0) & (toks < 256)).all()
+    assert attn_kernel.decode_attention.launches == before  # no card here
+
+
+# ---------------------------------------------------------------------------
+# what the slice does not serve, and devices
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(NOT_SERVED))
+def test_out_of_slice_configs_raise(name):
+    cfg = configs.get(name).reduced()
+    item = NOT_SERVED[name]
+    match = f"item {item}"
+    with pytest.raises(NotImplementedError, match=match):
+        T.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        T.init_params(torch.Generator(), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        T.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        T.forward_hidden({}, torch.zeros(1, 4, dtype=torch.int32), cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        T.decode_step({}, torch.zeros(1, 1, dtype=torch.int32), {},
+                      torch.zeros(1, dtype=torch.int32), cfg)
+
+
+def test_unported_layers_raise():
+    cfg = configs.get("qwen3-14b").reduced()
+    for fn, item in ((L.mla_init, "12d"), (L.mla_apply, "12d"),
+                     (L.moe_init, "12c"), (L.moe_apply, "12c"),
+                     (L.gqa_apply, "12d")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            fn(None, cfg)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = configs.get("qwen3-14b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_reference({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-14b", "--reduced"])
+
