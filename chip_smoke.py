@@ -8,7 +8,7 @@ failure exits non-zero:
 
 1. device — the card's name, power limit and compute capability
    (must be 9.0);
-2. build  — every kernel of the port (K1-K7, six sources) compiled
+2. build  — every kernel of the port (K1-K9, eight sources) compiled
    with ``nvcc`` (sm_90a), one process per source, all started
    together; each one's registers and shared memory printed;
 3. kernel — each kernel against its plain torch version on the card,
@@ -35,7 +35,15 @@ failure exits non-zero:
    reference's layout; the decode attention kernel (K7) at batch 32 over
    a cache of 8192 positions (frontiers seeded in [1, 8192]; then one
    row at lengths 0); both within a stated float32 bound of their plain
-   versions, beside ``scaled_dot_product_attention``;
+   versions, beside ``scaled_dot_product_attention``; the selective-scan
+   kernel (K8) at falcon-mamba-7b's widths (B=4, S=4096, di=8192, n=16),
+   a ragged case (S=1000, di=8096), a continuation from a nonzero h0 and
+   the serve path's prefill shape (B=4, S=128), y and the final state
+   within a stated float32 bound, beside its bytes and exponentials
+   bounds; the grouped matmul kernel (K9) at phi3.5-moe's prefill
+   (T_pad=3072 from ``monotonic_dispatch`` of seeded router logits,
+   4096 -> 6400 and 6400 -> 4096) and at block_t=16, within the
+   float32 dot-product bound, beside one cuBLAS product of equal FLOPs;
 4. main path — the nine Table-1 programs at ``--scale-mult 8`` through
    ``executor.execute(..., backend="torch")`` on the card, each final
    array bit-identical to the port's sequential oracle, plus one
@@ -70,13 +78,23 @@ failure exits non-zero:
    speedups of FUS2 over STA and LSQ, and host seconds; then the
    speculative programs at 8x in STA and in FUS2 under each predictor,
    cycles equal to the reference's;
-10. serve path — qwen3-14b at full width and depth (40 layers, float32,
-    59.07 GB of weights drawn on the card from a seed): the prefill
-    step's last-token logits (40 K6 launches) against 128 teacher-forced
-    decode steps (5120 K7 launches) within the reference's
-    decode-against-forward tolerance, then ``serve_batch`` for 4 prompts
-    of 128 tokens and 32 new ones (6400 K7 launches); prefill seconds,
-    decode ms per step beside its bytes bound, tokens/s, peak memory;
+10. the LM paths, one model on the card at a time, 4 prompts of 128
+    tokens and 32 new, float32, weights drawn on the card from a seed;
+    prefill seconds, decode ms per step beside its bytes bound, tokens/s,
+    peak memory and a profile of 4 decode steps for each:
+    serve path — qwen3-14b at full width and depth (40 layers, 59.07
+    GB): the prefill step's last-token logits (40 K6 launches) against
+    128 teacher-forced decode steps (5120 K7 launches) within the
+    reference's decode-against-forward tolerance, then ``serve_batch``
+    (6400 K7 launches);
+    SSM path — falcon-mamba-7b at full width and depth (64 layers, 28.02
+    GB): the prefill's logits (64 K8 launches) against 128
+    teacher-forced steps of the plain recurrence, then ``serve_batch``;
+    MoE path — phi3.5-moe at full width, 12 of its 32 layers (63.47
+    GB): the prefill (12 K6 launches, the capacity path), then each
+    layer's dropless MoE (3 K9 launches) against its capacity path with
+    room for every assignment on the prefill's hidden states, routing
+    equal, then ``serve_batch`` (1920 K7 launches);
 11. the card line, the ``{"kernels": [...]}`` line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +104,7 @@ where the port's package is missing. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -168,6 +187,27 @@ SERVE_MAX_SEQ = SERVE_P + SERVE_NEW + 1
 # logits of prefill against teacher-forced decode: the reference's own
 # tolerance for decode against forward (tests/test_arch_smoke.py)
 SERVE_ATOL, SERVE_RTOL = 2e-3, 1e-3
+# the SSM path: falcon-mamba-7b at full width and depth (28.02 GB in
+# float32); the MoE path: phi3.5-moe at full width, 12 of its 32 layers
+# (5.20 GB a layer: 63.47 GB, where all 32 would be 167.5 GB)
+SSM_ARCH = "falcon-mamba-7b"
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 12
+SFU_PER_SM = 16  # Hopper: special-function (exp2) results per SM per clock
+# K8 at falcon-mamba-7b's widths, and a ragged case
+K8_B, K8_S, K8_DI, K8_N = 4, 4096, 8192, 16
+K8R_S, K8R_DI = 1000, 8192 - 96
+# K8 against its plain version: the reference's kernel bound (rtol = atol
+# = 1e-4); the exponentials (expf against torch's exp) and the state sums
+# round differently, by ~1e-7 relative, and the decay keeps it from growing
+SCAN_ATOL = SCAN_RTOL = 1e-4
+# K9 at phi3.5-moe's prefill: 16 experts, top-2, d 4096, d_ff 6400
+K9_E, K9_TOP_K, K9_D, K9_FF = 16, 2, 4096, 6400
+K9_BLOCK_T, K9_SMALL_BT = 128, 16
+# the MoE layer's dropless path (K9) against its capacity path with room
+# for every assignment, float32: both sum 4096- and 6400-term products in
+# different orders (errors ~1e-6 on outputs of size ~1); 1e-4 is the
+# reference's own bound for its dropless FFN against a dense oracle
+MOE_ATOL, MOE_RTOL = 1e-4, 1e-4
 
 
 def _smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -656,6 +696,177 @@ def check_decode_kernel():
     }
 
 
+def _sfu_per_s() -> float:
+    """The card's peak rate of special-function results (exp2, the
+    exponential's scarce unit): SMs x 16 a clock x the maximum SM clock,
+    both read from the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return sms * SFU_PER_SM * mhz * 1e6
+
+
+def scan_inputs(seed, b, s, di, n, *, with_h0=False):
+    """Seeded scan inputs on the card, as the reference's kernel test
+    draws them: xi, B, C ~ N(0, 0.25), dt = softplus(N(0, 1)), a_neg =
+    -exp(0.3 N(0, 1)); h0 ~ N(0, 1) or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xi = _randn(g, b, s, di) * 0.5
+    dt = torch.nn.functional.softplus(_randn(g, b, s, di))
+    bm, cm = _randn(g, b, s, n) * 0.5, _randn(g, b, s, n) * 0.5
+    a_neg = -torch.exp(_randn(g, di, n) * 0.3)
+    h0 = _randn(g, b, di, n) if with_h0 else None
+    return xi, dt, bm, cm, a_neg, h0
+
+
+def _scan_err(got, want, what) -> float:
+    """Max abs error of ``got``, held within SCAN_ATOL + SCAN_RTOL·|want|."""
+    diff = (got.float() - want.float()).abs()
+    if not bool((diff <= SCAN_ATOL + SCAN_RTOL * want.float().abs()).all()):
+        raise AssertionError(f"{what}: max abs err {diff.max().item()} above "
+                             f"{SCAN_ATOL} + {SCAN_RTOL}|want|")
+    return float(diff.max().item())
+
+
+def check_scan_kernel():
+    """K8 against ``selective_scan_ref`` on the card, y and the final
+    state: at falcon-mamba-7b's widths (B=4, S=4096, di=8192, n=16); a
+    ragged case (S=1000, di=8192-96, no chunk or slab divides them); a
+    continuation from a nonzero h0; the serve path's prefill shape (B=4,
+    S=128). Timed at the first, beside the larger of its bytes bound (x,
+    dt and y once) and its exponentials' bound."""
+    from repro_torch.kernels.ssm_scan import kernel
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    cases = {"full": (K8_B, K8_S, K8_DI, False),
+             "ragged": (K8_B, K8R_S, K8R_DI, False),
+             "carried_h0": (K8_B, SERVE_P, K8_DI, True),
+             "serve_shape": (SERVE_B, SERVE_P, K8_DI, False)}
+    out = {}
+    for i, (name, (b, s, di, with_h0)) in enumerate(cases.items()):
+        args = scan_inputs(30 + i, b, s, di, K8_N, with_h0=with_h0)
+        y, h = kernel.selective_scan(*args)
+        y_ref, h_ref = selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        out[name] = {"B": b, "S": s, "di": di, "n": K8_N, "h0": with_h0,
+                     "max_abs_err": _scan_err(y, y_ref, f"K8 {name} y"),
+                     "h_final_max_abs_err": _scan_err(h, h_ref,
+                                                      f"K8 {name} h_final")}
+        if name == "full":
+            full = args
+        del args, y, h, y_ref, h_ref
+    nbytes = 3 * K8_B * K8_S * K8_DI * 4 + 2 * K8_B * K8_S * K8_N * 4 + (
+        K8_DI * K8_N * 4 + K8_B * K8_DI * K8_N * 4)
+    exps = K8_B * K8_S * K8_DI * K8_N
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sfu_ms = exps / _sfu_per_s() * 1e3
+    out.update({
+        "max_abs_err": max(c["max_abs_err"] for c in out.values()),
+        "h_final_max_abs_err": max(c["h_final_max_abs_err"]
+                                   for c in out.values()),
+        "ms": _time_ms(lambda: kernel.selective_scan(*full), REPS),
+        "plain_ms": _time_ms(lambda: selective_scan_ref(*full), 2),
+        "bytes_bound_ms": bytes_ms, "sfu_bound_ms": sfu_ms,
+        "bound_ms": max(bytes_ms, sfu_ms),
+        "bound_by": "bytes" if bytes_ms >= sfu_ms else "operations",
+    })
+    return out
+
+
+def gmm_inputs(seed, block_t):
+    """phi3.5-moe's prefill through the dispatch: router logits for
+    SERVE_B x SERVE_P tokens over 16 experts, top-2, then
+    ``monotonic_dispatch``; x_sorted (T_pad, 4096) with the tokens at
+    their slots (pads 0), w_in (16, 4096, 6400), w_out (16, 6400, 4096)
+    and an h (T_pad, 6400), all seeded on the card."""
+    from repro_torch.kernels.moe_group_mm.ops import monotonic_dispatch, route
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = SERVE_B * SERVE_P
+    _, top_e = route(_randn(g, t, K9_E), K9_TOP_K)
+    flat_e = top_e.reshape(-1).to(torch.int32)
+    n = flat_e.shape[0]
+    _, slot, be, _, _ = monotonic_dispatch(flat_e, K9_E, block_t)
+    t_pad = (n // block_t + K9_E) * block_t
+    x = torch.zeros(t_pad, K9_D, device="cuda")
+    x[slot.long()] = _randn(g, t, K9_D)[torch.arange(n, device="cuda")
+                                        // K9_TOP_K]
+    w_in = _randn(g, K9_E, K9_D, K9_FF) * K9_D ** -0.5
+    w_out = _randn(g, K9_E, K9_FF, K9_D) * K9_FF ** -0.5
+    h = _randn(g, t_pad, K9_FF)
+    return x, w_in, w_out, h, be, int(torch.unique(be[:t_pad // block_t])
+                                       .numel())
+
+
+def _gmm_err(x, w, be, block_t, got, want, what) -> float:
+    """Max abs error of ``got``, held within twice the float32 dot-product
+    bound γ_{d_in}·(|x||w|) (each sum order is within it of the exact
+    product, so two orders are within twice it)."""
+    from repro_torch.kernels.moe_group_mm.ref import group_matmul_ref
+
+    slack = 2 * _gamma(x.shape[1], F32_UNIT) * group_matmul_ref(
+        x.abs(), w.abs(), be, block_t=block_t)
+    diff = (got - want).abs()
+    if not bool((diff <= slack).all()):
+        raise AssertionError(f"{what}: error above the float32 bound")
+    return float(diff.max().item())
+
+
+def check_gmm_kernel():
+    """K9 against ``group_matmul_ref`` on the card at phi3.5-moe's prefill
+    (4 x 128 tokens, top-2 of 16 experts, block_t=128: T_pad=3072),
+    d_model 4096 -> d_ff 6400 (w_in) and 6400 -> 4096 (w_out), and at
+    block_t=16, each within twice the float32 dot-product bound; timed
+    (w_in) beside the operations bound and one cuBLAS product of equal
+    FLOPs, ``(3072, 4096) @ (4096, 6400)`` (a size yardstick: no single
+    PyTorch call computes the grouped product)."""
+    from repro_torch.kernels.moe_group_mm import kernel
+    from repro_torch.kernels.moe_group_mm.ref import group_matmul_ref
+
+    x, w_in, w_out, h, be, experts = gmm_inputs(40, K9_BLOCK_T)
+    t_pad = x.shape[0]
+    run = lambda: kernel.group_matmul(x, w_in, be,  # noqa: E731
+                                      block_t=K9_BLOCK_T)
+    got = run()
+    want = group_matmul_ref(x, w_in, be, block_t=K9_BLOCK_T)
+    torch.cuda.synchronize()
+    err_in = _gmm_err(x, w_in, be, K9_BLOCK_T, got, want, "K9 w_in")
+    got_o = kernel.group_matmul(h, w_out, be, block_t=K9_BLOCK_T)
+    want_o = group_matmul_ref(h, w_out, be, block_t=K9_BLOCK_T)
+    torch.cuda.synchronize()
+    err_out = _gmm_err(h, w_out, be, K9_BLOCK_T, got_o, want_o, "K9 w_out")
+    del got, want, got_o, want_o
+    xs, _, _, _, bes, _ = gmm_inputs(41, K9_SMALL_BT)
+    got_s = kernel.group_matmul(xs, w_in, bes, block_t=K9_SMALL_BT)
+    want_s = group_matmul_ref(xs, w_in, bes, block_t=K9_SMALL_BT)
+    torch.cuda.synchronize()
+    err_s = _gmm_err(xs, w_in, bes, K9_SMALL_BT, got_s, want_s,
+                     f"K9 at block_t={K9_SMALL_BT}")
+    del got_s, want_s
+    dense_w = w_in[0]
+    flops = 2 * t_pad * K9_D * K9_FF
+    # x once, the weights of the experts the blocks name once, out once
+    nbytes = 4 * (t_pad * K9_D + experts * K9_D * K9_FF + t_pad * K9_FF)
+    ops_ms = flops / _f32_flops_per_s() * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "T_pad": t_pad, "d_in": K9_D, "d_out": K9_FF, "E": K9_E,
+        "block_t": K9_BLOCK_T, "experts_used": experts, "gflop": flops / 1e9,
+        "max_abs_err": max(err_in, err_out, err_s), "w_in_max_abs_err": err_in,
+        "w_out_max_abs_err": err_out,
+        "small_block_t": {"block_t": K9_SMALL_BT, "T_pad": xs.shape[0],
+                          "max_abs_err": err_s},
+        "ms": _time_ms(run, REPS),
+        "w_out_ms": _time_ms(lambda: kernel.group_matmul(
+            h, w_out, be, block_t=K9_BLOCK_T), REPS),
+        "plain_ms": _time_ms(lambda: group_matmul_ref(x, w_in, be,
+                                                      block_t=K9_BLOCK_T), 5),
+        "dense_product_ms": _time_ms(lambda: x @ dense_w, REPS),
+        "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+    }
+
+
 def _param_bytes(params) -> int:
     return sum(_param_bytes(v) if isinstance(v, dict)
                else v.numel() * v.element_size() for v in params.values())
@@ -709,23 +920,129 @@ def profile_decode(step, params, cfg, tok, n_steps=4):
     }
 
 
-def run_serve_path():
-    """qwen3-14b at full width and depth in float32 on the card, weights
-    drawn from a seeded generator. (a) ``make_prefill_step``'s last-token
-    logits (one K6 launch per layer) against the same prompts fed by
-    teacher-forced ``make_serve_step`` (one K7 launch per layer and
-    step), within the reference's decode-against-forward tolerance; (b)
-    ``serve_batch`` for ``SERVE_NEW`` tokens, its first tokens equal to
-    (a)'s argmax wherever the top-2 margin exceeds twice the tolerance.
-    Returns the result dict with the launches of each run."""
+def _launch_counts() -> dict:
+    """The launch counters of the LM kernels K6-K9."""
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.moe_group_mm import kernel as k9
+    from repro_torch.kernels.ssm_scan import kernel as k8
+
+    return {"k6": attn.flash_attention.launches,
+            "k7": attn.decode_attention.launches,
+            "k8": k8.ssm_scan.launches, "k9": k9.group_matmul.launches}
+
+
+def _zero_launch_counts():
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.moe_group_mm import kernel as k9
+    from repro_torch.kernels.ssm_scan import kernel as k8
+
+    for counted in (attn.flash_attention, attn.decode_attention,
+                    k8.ssm_scan, k9.group_matmul):
+        counted.launches = 0
+
+
+def _decode_bound_ms(cfg, params, steps_run) -> float:
+    """The bytes bound of one decode step, averaged over ``steps_run``
+    steps from an empty cache: every weight but the embedding table (4
+    rows gathered) read, the batch's embeddings; then per layer either
+    the committed K/V rows read and one row written (attention), or the
+    conv window and state read and written (Mamba-1)."""
+    weights = _param_bytes(params) - params["embed"].numel() * 4
+    per_step = weights + SERVE_B * cfg.d_model * 4
+    if cfg.ssm:
+        di = cfg.expand * cfg.d_model
+        state = (cfg.d_conv - 1) * di + di * cfg.ssm_state
+        cache = 2 * 4 * cfg.n_layers * SERVE_B * state * steps_run
+    else:
+        row = cfg.n_kv_heads * cfg.resolved_head_dim * 4 * 2 * cfg.n_layers
+        cache_rows = sum(SERVE_B * (t + 1) for t in range(steps_run))
+        cache = row * (cache_rows + SERVE_B * steps_run)
+    return (steps_run * per_step + cache) / HBM_BYTES_PER_S / steps_run * 1e3
+
+
+def plain_scan_prefill(cfg, params, prompts):
+    """The prefill's last-token logits with K8 swapped for its plain
+    version, a diagnostic only (the port never runs the plain version on
+    the card): against the K8 prefill and the teacher-forced decode, it
+    shows how much of the gap between the two K8 accounts for."""
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+    from repro_torch.models import layers as L, ssm as S, transformer as T
+
+    saved = S.selective_scan
+    S.selective_scan = selective_scan_ref
+    try:
+        logits, _ = T.prefill(params, prompts, cfg, L.FP32,
+                              max_seq=SERVE_MAX_SEQ)
+    finally:
+        S.selective_scan = saved
+    return logits
+
+
+def check_moe_layers(cfg, params, prompts):
+    """For each layer, its MoE weights on the prefill's final hidden
+    states: the dropless path (``moe_apply(use_kernel=True)``, three K9
+    launches) against the capacity path with room for every assignment
+    (``capacity_factor = E / k``, so ``cap = T``), within MOE_ATOL +
+    MOE_RTOL·|capacity|. Both route alike: the capacity path keeps every
+    assignment, and each assignment's buffer row (``slot // cap``) and
+    its row block's expert in the monotonic dispatch name the expert
+    ``route`` chose."""
+    from repro_torch.kernels.moe_group_mm.ops import monotonic_dispatch, route
+    from repro_torch.models import layers as L, transformer as T
+
+    hidden = T.forward_hidden(params, prompts, cfg, L.FP32, inference=True)
+    flat = hidden.reshape(-1, cfg.d_model)
+    t, e, k = flat.shape[0], cfg.n_experts, cfg.top_k
+    errs, margins, out_max = [], [], 0.0
+    for i in range(cfg.n_layers):
+        lp = T.layer_params(params["layers"], i)["moe"]
+        probs = torch.softmax(flat @ lp["router"], dim=-1)
+        _, top_e = route(flat @ lp["router"], k)
+        flat_e = top_e.reshape(-1)
+        slot, keep = L.capacity_slots(flat_e, e, t)
+        _, slot_d, be, _, _ = monotonic_dispatch(flat_e.to(torch.int32), e,
+                                                 K9_BLOCK_T)
+        dropless_e = be.long()[slot_d.long() // K9_BLOCK_T]
+        if not (bool(keep.all()) and torch.equal(slot // t, flat_e)
+                and torch.equal(dropless_e, flat_e)):
+            raise AssertionError(f"MoE layer {i}: the two paths route "
+                                 f"differently")
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        margins.append(float((srt[:, k - 1] - srt[:, k]).min().item()))
+        dropless = L.moe_apply(lp, hidden, cfg, use_kernel=True)
+        roomy = L.moe_apply(lp, hidden, cfg, capacity_factor=e / k)
+        torch.cuda.synchronize()
+        diff = (dropless - roomy).abs()
+        if not bool((diff <= MOE_ATOL + MOE_RTOL * roomy.abs()).all()):
+            raise AssertionError(f"MoE layer {i}: dropless (K9) and capacity "
+                                 f"paths differ by {diff.max().item()}")
+        errs.append(float(diff.max().item()))
+        out_max = max(out_max, float(roomy.abs().max().item()))
+    return {"layers": cfg.n_layers, "tokens": t,
+            "max_abs_err": max(errs), "max_abs_err_per_layer": errs,
+            "min_top_k_margin": min(margins), "output_abs_max": out_max}
+
+
+def run_lm_path(arch, *, n_layers=None):
+    """One LM at full width in float32 on the card, weights drawn from a
+    seeded generator, 4 prompts of 128 tokens: (a) ``make_prefill_step``'s
+    last-token logits, held (except for MoE) against the same prompts fed
+    by 128 teacher-forced ``make_serve_step`` steps within the reference's
+    decode-against-forward tolerance; for MoE, where a prompt and a decode
+    step compute different functions (capacity drops), ``check_moe_layers``
+    instead; (b) ``serve_batch`` for ``SERVE_NEW`` tokens, its first
+    tokens equal to (a)'s argmax wherever the top-2 margin exceeds twice
+    the tolerance, timed beside the decode step's bytes bound; (c)
+    ``profile_decode``. The K6-K9 launches of each run are read around it
+    and must equal the family's counts. ``n_layers`` cuts the depth."""
     from repro_torch.configs import base as configs
-    from repro_torch.kernels.attention import kernel
     from repro_torch.launch import serve, steps
     from repro_torch.models import layers as L, transformer as T
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = configs.get(SERVE_ARCH)
+    cfg = configs.get(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n = cfg.n_layers
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -736,97 +1053,120 @@ def run_serve_path():
     prompts = torch.randint(3, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
                             device=dev, dtype=torch.int32)
     torch.cuda.synchronize()
-    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+    out = {"arch": cfg.name, "n_layers": n,
+           "n_layers_of": configs.get(arch).n_layers, "d_model": cfg.d_model,
            "batch": SERVE_B, "prompt_len": SERVE_P, "max_new": SERVE_NEW,
            "max_seq": SERVE_MAX_SEQ, "dtype": "float32",
            "init_s": time.perf_counter() - t0,
            "param_bytes": _param_bytes(params)}
+    steps_run = SERVE_P + SERVE_NEW
+    zero = {"k6": 0, "k7": 0, "k8": 0, "k9": 0}
+    if cfg.ssm:
+        expect = {"prefill": {**zero, "k8": n}, "teacher_forced": zero,
+                  "serve": zero}
+    elif cfg.is_moe:
+        expect = {"prefill": {**zero, "k6": n},
+                  "moe_check": {**zero, "k6": n, "k9": 3 * n},
+                  "serve": {**zero, "k7": n * steps_run}}
+    else:
+        expect = {"prefill": {**zero, "k6": n},
+                  "teacher_forced": {**zero, "k7": n * SERVE_P},
+                  "serve": {**zero, "k7": n * steps_run}}
+    launches = {}
 
-    # (a) prefill against teacher-forced decode
-    kernel.flash_attention.launches = 0
-    kernel.decode_attention.launches = 0
+    # (a) prefill, against teacher-forced decode or the MoE layer check
+    _zero_launch_counts()
     t0 = time.perf_counter()
     fwd, _ = steps.make_prefill_step(cfg, L.FP32, max_seq=SERVE_MAX_SEQ)(
         params, {"tokens": prompts})
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
-    out["prefill_k6_launches"] = kernel.flash_attention.launches
-    out["prefill_k7_launches"] = kernel.decode_attention.launches
+    launches["prefill"] = _launch_counts()
+    if not bool(torch.isfinite(fwd).all()):
+        raise AssertionError(f"{arch}: non-finite prefill logits")
     step = steps.make_serve_step(cfg, L.FP32)
-    cache = T.init_cache(cfg, SERVE_B, SERVE_MAX_SEQ, L.FP32, device=dev)
-    lens = torch.zeros(SERVE_B, dtype=torch.int32, device=dev)
-    kernel.decode_attention.launches = 0
-    t0 = time.perf_counter()
-    for t in range(SERVE_P):
-        dec, cache, lens = step(params, prompts[:, t:t + 1], cache, lens)
-    torch.cuda.synchronize()
-    out["teacher_forced_s"] = time.perf_counter() - t0
-    out["teacher_forced_k7_launches"] = kernel.decode_attention.launches
-    del cache
-    if not (torch.isfinite(fwd).all() and torch.isfinite(dec).all()):
-        raise AssertionError("serve path: non-finite logits")
-    diff = (dec - fwd).abs()
-    tol = SERVE_ATOL + SERVE_RTOL * fwd.abs()
-    out["forward_vs_decode"] = {
-        "max_abs_err": float(diff.max().item()),
-        "max_rel_err": float((diff / fwd.abs().clamp(min=1e-6)).max().item()),
-        "max_err_over_tol": float((diff / tol).max().item()),
-        "top1_agree": float((dec.argmax(-1) == fwd.argmax(-1)).float()
-                            .mean().item()),
-        "logit_abs_max": float(fwd.abs().max().item()),
-    }
-    if not bool((diff <= tol).all()):
-        raise AssertionError(f"prefill and teacher-forced decode logits "
-                             f"differ: {out['forward_vs_decode']}")
+    dec = None
+    if cfg.is_moe:
+        _zero_launch_counts()
+        out["moe_check"] = check_moe_layers(cfg, params, prompts)
+        launches["moe_check"] = _launch_counts()
+    else:
+        cache = T.init_cache(cfg, SERVE_B, SERVE_MAX_SEQ, L.FP32, device=dev)
+        lens = torch.zeros(SERVE_B, dtype=torch.int32, device=dev)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(SERVE_P):
+            dec, cache, lens = step(params, prompts[:, t:t + 1], cache, lens)
+        torch.cuda.synchronize()
+        out["teacher_forced_s"] = time.perf_counter() - t0
+        launches["teacher_forced"] = _launch_counts()
+        del cache
+        if not bool(torch.isfinite(dec).all()):
+            raise AssertionError(f"{arch}: non-finite decode logits")
+        diff = (dec - fwd).abs()
+        tol = SERVE_ATOL + SERVE_RTOL * fwd.abs()
+        out["forward_vs_decode"] = {
+            "max_abs_err": float(diff.max().item()),
+            "max_rel_err": float((diff / fwd.abs().clamp(min=1e-6)).max()
+                                 .item()),
+            "max_err_over_tol": float((diff / tol).max().item()),
+            "top1_agree": float((dec.argmax(-1) == fwd.argmax(-1)).float()
+                                .mean().item()),
+            "logit_abs_max": float(fwd.abs().max().item()),
+        }
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"{arch}: prefill and teacher-forced decode "
+                                 f"logits differ: {out['forward_vs_decode']}")
+        if cfg.ssm:
+            plain = plain_scan_prefill(cfg, params, prompts)
+            out["forward_vs_decode"]["plain_scan_prefill"] = {
+                "max_abs_err_vs_k8_prefill":
+                    float((plain - fwd).abs().max().item()),
+                "max_abs_err_vs_decode":
+                    float((plain - dec).abs().max().item()),
+                "max_err_over_tol_vs_decode":
+                    float(((plain - dec).abs() / tol).max().item()),
+            }
 
     # (b) serve_batch
-    kernel.flash_attention.launches = 0
-    kernel.decode_attention.launches = 0
+    _zero_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = serve.serve_batch(cfg, params, prompts, max_new=SERVE_NEW,
                              max_seq=SERVE_MAX_SEQ)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    out["serve_k6_launches"] = kernel.flash_attention.launches
-    out["serve_k7_launches"] = kernel.decode_attention.launches
+    launches["serve"] = _launch_counts()
     if toks.shape != (SERVE_B, SERVE_NEW) or not bool(
             ((toks >= 0) & (toks < cfg.vocab)).all()):
-        raise AssertionError(f"serve_batch returned {tuple(toks.shape)} "
-                             f"tokens or tokens out of range")
-    top = torch.topk(dec, 2, dim=-1).values
-    sure = (top[:, 0] - top[:, 1]) > 2 * (SERVE_ATOL
-                                          + SERVE_RTOL * top[:, 0].abs())
-    first = dec.argmax(-1).to(torch.int32)
-    if not bool((toks[:, 0] == first)[sure].all()):
-        raise AssertionError("serve_batch's first tokens differ from the "
-                             "teacher-forced argmax")
-    steps_run = SERVE_P + SERVE_NEW
-    # per step: every weight but the embedding table (4 rows gathered),
-    # the committed cache rows of every layer read, one row written
-    weights = out["param_bytes"] - params["embed"].numel() * 4
-    row = cfg.n_kv_heads * cfg.resolved_head_dim * 4 * 2 * cfg.n_layers
-    cache_rows = sum(SERVE_B * (t + 1) for t in range(steps_run))
-    bound_s = (steps_run * (weights + SERVE_B * cfg.d_model * 4)
-               + row * (cache_rows + SERVE_B * steps_run)) / HBM_BYTES_PER_S
+        raise AssertionError(f"{arch}: serve_batch returned "
+                             f"{tuple(toks.shape)} tokens or tokens out of "
+                             f"range")
+    if dec is not None:
+        top = torch.topk(dec, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > 2 * (SERVE_ATOL
+                                              + SERVE_RTOL * top[:, 0].abs())
+        first = dec.argmax(-1).to(torch.int32)
+        if not bool((toks[:, 0] == first)[sure].all()):
+            raise AssertionError(f"{arch}: serve_batch's first tokens differ "
+                                 f"from the teacher-forced argmax")
+        out["first_tokens_checked"] = int(sure.sum().item())
     out.update({
         "serve_s": serve_s, "serve_steps": steps_run,
         "decode_ms_per_step": serve_s / steps_run * 1e3,
-        "decode_bound_ms_per_step": bound_s / steps_run * 1e3,
+        "decode_bound_ms_per_step": _decode_bound_ms(cfg, params, steps_run),
         "generated_tokens_per_s": SERVE_B * SERVE_NEW / serve_s,
         "step_tokens_per_s": SERVE_B * steps_run / serve_s,
-        "first_tokens_checked": int(sure.sum().item()),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "tokens_head": toks[:2, :8].tolist(),
     })
     out["decode_profile"] = profile_decode(step, params, cfg, toks[:, -1:])
-    expect = {"prefill_k6_launches": cfg.n_layers, "prefill_k7_launches": 0,
-              "teacher_forced_k7_launches": cfg.n_layers * SERVE_P,
-              "serve_k6_launches": 0,
-              "serve_k7_launches": cfg.n_layers * steps_run}
-    got = {k: out[k] for k in expect}
-    if got != expect:
-        raise AssertionError(f"serve path launches {got}, expected {expect}")
+    out["launches"] = launches
+    if launches != expect:
+        raise AssertionError(f"{arch}: launches {launches}, expected "
+                             f"{expect}")
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1154,6 +1494,9 @@ def main() -> int:
     from repro_torch.kernels.histogram import kernel as k5
     from repro_torch.kernels.wave_exec import kernel
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     # 1. device
     card = _card_line()
     cap = torch.cuda.get_device_capability(0)
@@ -1198,6 +1541,11 @@ def main() -> int:
     print("flash attention kernel:", json.dumps(fl), flush=True)
     de = check_decode_kernel()
     print("decode attention kernel:", json.dumps(de), flush=True)
+    sc = check_scan_kernel()
+    print("selective scan kernel:", json.dumps(sc), flush=True)
+    gm = check_gmm_kernel()
+    print("grouped matmul kernel:", json.dumps(gm), flush=True)
+    torch.cuda.empty_cache()
 
     # 4. main path, with the wave kernel's count read around it alone
     kernel.wave_loop.launches = 0
@@ -1283,16 +1631,20 @@ def main() -> int:
     }
     print("simulate:", json.dumps(summary), flush=True)
 
-    # 10. serve path, with the K6 and K7 counts read around each run
-    sv = run_serve_path()
+    # 10. the LM paths, one model at a time, with the K6-K9 counts read
+    # around each run: dense GQA (K6, K7), Mamba-1 (K8), MoE (K6, K7, K9)
+    sv = run_lm_path(SERVE_ARCH)
     print("serve path:", json.dumps(sv), flush=True)
-    torch.cuda.empty_cache()
+    ssm = run_lm_path(SSM_ARCH)
+    print("SSM path:", json.dumps(ssm), flush=True)
+    moe = run_lm_path(MOE_ARCH, n_layers=MOE_LAYERS)
+    print("MoE path:", json.dumps(moe), flush=True)
 
     # 11. result lines
     wave_entry = {
         "name": "wave_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/wave_exec/csrc/wave_exec.cu",
-        "replaces": "src/repro/kernels/wave_exec/kernel.py:43",
+        "replaces": "src/repro/kernels/wave_exec/kernel.py:61",
         "launches": launches,
         "tolerance": "bit-exact (torch.equal on image and gathered words)",
         "max_abs_err": max(c["max_abs_err"]
@@ -1309,7 +1661,7 @@ def main() -> int:
     hazard_entry = {
         "name": "hazard_frontier", "route": "cuda",
         "source": "src/repro_torch/kernels/du_hazard/csrc/du_hazard.cu",
-        "replaces": "src/repro/kernels/du_hazard/kernel.py:45",
+        "replaces": "src/repro/kernels/du_hazard/kernel.py:99",
         "launches": k2_launches,
         "tolerance": "bit-exact (torch.equal on int32 frontiers)",
         "max_abs_err": max(c[side]["max_abs_err"] for c in (hz, hz_unsorted)
@@ -1325,7 +1677,7 @@ def main() -> int:
     forward_entry = {
         "name": "fused_stream", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_stream/csrc/fused_stream.cu",
-        "replaces": "src/repro/kernels/fused_stream/kernel.py:40",
+        "replaces": "src/repro/kernels/fused_stream/kernel.py:95",
         "launches": k3_launches,
         "tolerance": "bit-exact (torch.equal on float64 words and hits)",
         "max_abs_err": fw["max_abs_err"],
@@ -1338,7 +1690,7 @@ def main() -> int:
     spmv_entry = {
         "name": "csr_spmv", "route": "cuda",
         "source": "src/repro_torch/kernels/csr_spmv/csrc/csr_spmv.cu",
-        "replaces": "src/repro/kernels/csr_spmv/kernel.py:24",
+        "replaces": "src/repro/kernels/csr_spmv/kernel.py:44",
         "launches": k4_launches,
         "tolerance": "bit-exact (torch.equal) against the plain version; "
                      "cuSPARSE within 2*gamma_(W+3)*|A||x|",
@@ -1353,7 +1705,7 @@ def main() -> int:
     hist_entry = {
         "name": "histogram", "route": "cuda",
         "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
-        "replaces": "src/repro/kernels/histogram/kernel.py:22",
+        "replaces": "src/repro/kernels/histogram/kernel.py:47",
         "launches": k5_launches,
         "tolerance": "bit-exact (torch.equal on float32 counts)",
         "max_abs_err": max(hi["max_abs_err"], hi_global["max_abs_err"]),
@@ -1368,7 +1720,10 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:88",
-        "launches": sv["prefill_k6_launches"],
+        "launches": sv["launches"]["prefill"]["k6"],
+        "launches_on_paths": {"serve prefill": sv["launches"]["prefill"]["k6"],
+                              "MoE prefill": moe["launches"]["prefill"]["k6"],
+                              "MoE check": moe["launches"]["moe_check"]["k6"]},
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
                      "version (float32; the sum order differs)",
         "max_abs_err": fl["max_abs_err"],
@@ -1387,8 +1742,10 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:153",
-        "launches": sv["serve_k7_launches"],
-        "teacher_forced_launches": sv["teacher_forced_k7_launches"],
+        "launches": sv["launches"]["serve"]["k7"],
+        "teacher_forced_launches": sv["launches"]["teacher_forced"]["k7"],
+        "launches_on_paths": {"MoE serve_batch":
+                              moe["launches"]["serve"]["k7"]},
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
                      "version (float32; the sum order differs)",
         "max_abs_err": de["max_abs_err"],
@@ -1403,10 +1760,49 @@ def main() -> int:
         "lengths0_max_abs_err": de["lengths0_max_abs_err"],
         "serve_shape": de["serve_shape"],
     }
+    scan_entry = {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:79",
+        "launches": ssm["launches"]["prefill"]["k8"],
+        "tolerance": f"|err| <= {SCAN_ATOL} + {SCAN_RTOL}|plain| on y and "
+                     "h_final (float32; exp and the state sum round "
+                     "differently)",
+        "max_abs_err": max(sc["max_abs_err"], sc["h_final_max_abs_err"]),
+        "ms": sc["ms"], "plain_ms": sc["plain_ms"],
+        "bound_ms": sc["bound_ms"], "bound_by": sc["bound_by"],
+        "bytes_bound_ms": sc["bytes_bound_ms"],
+        "sfu_bound_ms": sc["sfu_bound_ms"],
+        "library_ms": None,
+        "library": "none: no single torch call runs a selective scan",
+        "shape": {"B": K8_B, "S": K8_S, "di": K8_DI, "n": K8_N},
+        "cases": {k: sc[k] for k in ("ragged", "carried_h0", "serve_shape")},
+    }
+    gmm_entry = {
+        "name": "group_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_group_mm/csrc/"
+                  "moe_group_mm.cu",
+        "replaces": "src/repro/kernels/moe_group_mm/kernel.py:60",
+        "launches": moe["launches"]["moe_check"]["k9"],
+        "tolerance": "|err| <= 2*gamma_(d_in)*(|x||w|) against the plain "
+                     f"version; the MoE layer within {MOE_ATOL} + "
+                     f"{MOE_RTOL}|capacity path|",
+        "max_abs_err": gm["max_abs_err"],
+        "ms": gm["ms"], "plain_ms": gm["plain_ms"],
+        "bound_ms": gm["bound_ms"], "bound_by": gm["bound_by"],
+        "library_ms": None,
+        "library": "none: no single torch call computes a grouped product",
+        "dense_product_of_equal_flops_ms": gm["dense_product_ms"],
+        "w_out_ms": gm["w_out_ms"],
+        "moe_layer_max_abs_err": moe["moe_check"]["max_abs_err"],
+        "shape": {k: gm[k] for k in ("T_pad", "d_in", "d_out", "E",
+                                     "block_t", "experts_used")},
+        "small_block_t": gm["small_block_t"],
+    }
     print(_card_line())
     print(json.dumps({"kernels": [wave_entry, hazard_entry, forward_entry,
                                   spmv_entry, hist_entry, flash_entry,
-                                  decode_entry]}))
+                                  decode_entry, scan_entry, gmm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -19,8 +19,11 @@ cycle simulator, ``core.simulator.simulate`` (numpy on the host, as in
 the reference); the speculative AGU (``core.speculate``) and cross-PE
 FIFO streaming on both entry points; and the substrate ops on the ELL
 SpMV and histogram kernels (``kernels/csr_spmv``,
-``kernels/histogram``); and the LM serving path for dense GQA decoders
+``kernels/histogram``); and the LM serving path for GQA decoders
 (``configs``, ``models``, ``launch.serve``) on the flash and decode
-attention kernels (``kernels/attention``). Entry points run on the card
+attention kernels (``kernels/attention``), extended to mixture-of-experts
+decoders, whose dropless path runs the grouped matmul kernel
+(``kernels/moe_group_mm``), and to Mamba-1 stacks, whose prefill runs the
+selective-scan kernel (``kernels/ssm_scan``). Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU, as the tests do.
 """

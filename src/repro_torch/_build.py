@@ -39,6 +39,8 @@ SOURCES = {
     "csr_spmv": "kernels/csr_spmv/csrc/csr_spmv.cu",
     "histogram": "kernels/histogram/csrc/histogram.cu",
     "attention": "kernels/attention/csrc/attention.cu",
+    "ssm_scan": "kernels/ssm_scan/csrc/ssm_scan.cu",
+    "moe_group_mm": "kernels/moe_group_mm/csrc/moe_group_mm.cu",
 }
 
 NVCC_FLAGS = (

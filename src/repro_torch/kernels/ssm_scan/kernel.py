@@ -1,0 +1,135 @@
+"""The Mamba-1 selective scan (K8), on the card.
+
+The port of the TPU kernel ``src/repro/kernels/ssm_scan/kernel.py``
+(``_scan_kernel`` through ``ssm_scan``), written by hand in CUDA C++ for
+``sm_90a`` (``csrc/ssm_scan.cu``; the design notes and the bound are
+there). Two entries:
+
+- ``ssm_scan``, the reference's per-sample signature: xi, dt ``(S, di)``,
+  B, C ``(S, n)``, a_neg ``(di, n)`` → y ``(S, di)``, from a zero state;
+- ``selective_scan``, the model's: batched ``(B, S, di)`` inputs and an
+  initial state ``h0`` ``(B, di, n)`` (zeros when None) → ``(y,
+  h_final)``, called by ``models.ssm._mamba1_chunked``.
+
+Sizes are run-time: S need not divide by ``chunk`` nor di by
+``block_d`` (the reference asserts both); ``chunk`` and ``block_d`` are
+kept for the reference's signature and change nothing. The state size n
+must be at most 16 on the card (``MAX_STATE``; Mamba-1's is 16).
+
+On a CUDA tensor each entry launches the kernel, built from source at
+first use (``repro_torch._build``), and raises on any build or launch
+failure. Only tensors on the CPU, which the tests pass, go to the plain
+versions in ``ref.py``. ``ssm_scan.launches`` counts the kernel's
+launches through either entry; S = 0 returns without one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch import _build
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+MAX_STATE = 16  # kMaxN in csrc/ssm_scan.cu
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_MAX_GRID_Y = 65535
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssm_scan")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssm_scan_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.ssm_scan_launch.restype = i
+    lib.ssm_scan_error_string.argtypes = [i]
+    lib.ssm_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(xi, dt, bmat, cmat, a_neg, h0):
+    """Shapes and devices of the batched entry; returns the device."""
+    if xi.dim() != 3 or dt.shape != xi.shape:
+        raise ValueError("selective_scan: xi and dt must be (B, S, di) alike")
+    b, s, di = xi.shape
+    if a_neg.dim() != 2 or a_neg.shape[0] != di:
+        raise ValueError(f"selective_scan: a_neg must be ({di}, n), got "
+                         f"{tuple(a_neg.shape)}")
+    n = a_neg.shape[1]
+    if bmat.shape != (b, s, n) or cmat.shape != (b, s, n):
+        raise ValueError(f"selective_scan: B and C must be ({b}, {s}, {n})")
+    if h0 is not None and h0.shape != (b, di, n):
+        raise ValueError(f"selective_scan: h0 must be ({b}, {di}, {n})")
+    tensors = [xi, dt, bmat, cmat, a_neg] + ([] if h0 is None else [h0])
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"selective_scan: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"selective_scan: unsupported device {dev}")
+    return dev
+
+
+def _launch(xi, dt, bmat, cmat, a_neg, h0):
+    b, s, di = xi.shape
+    n = a_neg.shape[1]
+    if xi.dtype not in _DTYPES:
+        raise TypeError(f"selective_scan: xi must be float32, float16 or "
+                        f"bfloat16 on the card, got {xi.dtype}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"selective_scan: state size {n} outside "
+                         f"[1, {MAX_STATE}] on the card")
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"selective_scan: batch {b} above {_MAX_GRID_Y}")
+    if xi.numel() >= 2**31:
+        raise ValueError("selective_scan: xi must hold < 2**31 elements")
+    y = torch.empty_like(xi, memory_format=torch.contiguous_format)
+    if b == 0 or di == 0 or s == 0:
+        h = (torch.zeros((b, di, n), dtype=torch.float32, device=xi.device)
+             if h0 is None else h0.float().clone())
+        return y, h
+    h_out = torch.empty((b, di, n), dtype=torch.float32, device=xi.device)
+    x = xi.contiguous()
+    d, bm, cm, a = (t.float().contiguous() for t in (dt, bmat, cmat, a_neg))
+    h_in = None if h0 is None else h0.float().contiguous()
+    with torch.cuda.device(xi.device):
+        stream = torch.cuda.current_stream(xi.device).cuda_stream
+        rc = _lib().ssm_scan_launch(
+            _DTYPES[x.dtype], x.data_ptr(), d.data_ptr(), bm.data_ptr(),
+            cm.data_ptr(), a.data_ptr(),
+            None if h_in is None else h_in.data_ptr(), y.data_ptr(),
+            h_out.data_ptr(), b, s, di, n, stream,
+        )
+    if rc != 0:
+        raise RuntimeError("ssm_scan kernel launch failed: "
+                           + _lib().ssm_scan_error_string(rc).decode())
+    ssm_scan.launches += 1
+    return y, h_out
+
+
+def selective_scan(xi, dt, bmat, cmat, a_neg, h0=None):
+    """xi, dt ``(B, S, di)``; bmat, cmat ``(B, S, n)``; a_neg ``(di, n)``;
+    h0 ``(B, di, n)`` or None (zeros) → ``(y (B, S, di) in xi's dtype,
+    h_final (B, di, n) float32)``."""
+    if _check(xi, dt, bmat, cmat, a_neg, h0).type == "cpu":
+        return selective_scan_ref(xi, dt, bmat, cmat, a_neg, h0)
+    return _launch(xi, dt, bmat, cmat, a_neg, h0)
+
+
+def ssm_scan(xi, dt, bmat, cmat, a_neg, *, chunk: int = 128,
+             block_d: int = 512):
+    """The reference's signature: one sample, xi/dt ``(S, di)``,
+    bmat/cmat ``(S, n)``, a_neg ``(di, n)`` → y ``(S, di)`` in xi's
+    dtype, from a zero state."""
+    if chunk < 1 or block_d < 1:
+        raise ValueError(f"ssm_scan: chunk and block_d must be positive, "
+                         f"got {chunk}, {block_d}")
+    if xi.dim() != 2:
+        raise ValueError("ssm_scan: xi must be (S, di)")
+    y, _ = selective_scan(xi[None], dt[None], bmat[None], cmat[None], a_neg)
+    return y[0]
+
+
+ssm_scan.launches = 0

@@ -4,18 +4,24 @@ frontier (DESIGN.md §3.2).
 The port of ``src/repro/launch/serve.py``. The cache ``lengths`` vector
 is the per-sequence RAW frontier — append (store at t) / attend (load
 <= t) — and each decode step advances every frontier by one; on the
-card each step launches the decode kernel K7 once per layer. Greedy
-sampling, for determinism.
+card each step launches the decode kernel K7 once per layer. A Mamba-1
+stack (falcon-mamba-7b) carries a recurrent state per layer instead and
+launches no attention kernel. Greedy sampling, for determinism.
 
 Run on the card (``PYTHONPATH=src``)::
 
     python -m repro_torch.launch.serve --arch qwen3-14b --batch 4 \\
         --prompt-len 128 --max-new 32
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --batch 4 \\
+        --prompt-len 128 --max-new 32
+    python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \\
+        --n-layers 12 --batch 4 --prompt-len 128 --max-new 32
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -59,6 +65,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 keeps the "
+                         "config's): phi3.5-moe in float32 fits one 80 GB "
+                         "card at 12 of its 32")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -73,6 +83,8 @@ def main(argv=None):
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     dt = L.FP32
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(gen, cfg, dt, device=dev)
@@ -88,7 +100,8 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt_s = time.time() - t0
-    print(f"arch={cfg.name} generated {tuple(toks.shape)} in {dt_s:.1f}s")
+    print(f"arch={cfg.name} layers={cfg.n_layers} generated "
+          f"{tuple(toks.shape)} in {dt_s:.1f}s")
     print(toks[:2].cpu())
     return toks
 

@@ -1,3 +1,4 @@
-"""LM model stack of the port, the dense-GQA serving subset: layers,
-flash attention, the transformer's prefill and decode, and the carry-over
-of the reference's weights (``convert``)."""
+"""LM model stack of the port, the serving subset: layers (MoE
+included), flash attention, Mamba-1 blocks (``ssm``), the transformer's
+prefill and decode, and the carry-over of the reference's weights
+(``convert``)."""

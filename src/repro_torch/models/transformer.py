@@ -1,9 +1,10 @@
-"""Model assembly, the dense-GQA serving subset.
+"""Model assembly, the serving subset.
 
 The port of the reference's model API (``src/repro/models/transformer.py``)
-for the configurations without experts, state-space layers, MLA, an
-encoder or a sliding window — qwen3-14b, starcoder2-7b and
-internvl2-76b's backbone:
+for the decoders without MLA, an encoder, a sliding window or a hybrid
+stack: the dense GQA ones (qwen3-14b, starcoder2-7b, internvl2-76b's
+backbone), the mixture-of-experts ones (phi3.5-moe, moonshot) and the
+pure Mamba-1 one (falcon-mamba-7b):
 
   init_params(generator, cfg, dt, device=)     -> params (layer-stacked)
   forward_hidden(params, tokens, cfg, dt)      -> final-normed hidden states
@@ -21,8 +22,13 @@ sharding do nothing on one card and have no counterpart here).
 Full-sequence attention goes through ``flash.flash_mha``, which launches
 the flash attention kernel K6 on the card; the decode step's attention
 goes through ``kernels.attention.decode_attention_gqa``, the decode
-kernel K7, one launch per layer per step. On the CPU both run their
-plain versions.
+kernel K7, one launch per layer per step. A Mamba-1 layer's scan over a
+sequence launches the selective-scan kernel K8 once (``models.ssm``); its
+decode step is the plain recurrence. MoE layers take the reference's
+capacity path, in plain torch, as the reference's serving does; the
+grouped matmul kernel K9 runs on the dropless path
+(``layers.moe_apply(use_kernel=True)``). On the CPU every kernel runs its
+plain version.
 
 Other configurations raise ``NotImplementedError`` naming their ROADMAP
 item (``check_supported``).
@@ -38,18 +44,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.attention.kernel import decode_attention_gqa
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.flash import flash_mha
 
 Dtypes = L.Dtypes
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder
-    without a sliding window, the family this slice serves."""
-    if cfg.ssm is not None or cfg.shared_attn_every:
-        what, item = "state-space layers (the Mamba scan, K8)", "12b"
-    elif cfg.is_moe:
-        what, item = "mixture-of-experts layers (K9)", "12c"
+    """Raise ``NotImplementedError`` unless ``cfg`` is a GQA decoder
+    (dense or MoE) without a sliding window, or a pure Mamba-1 stack: the
+    families the port serves."""
+    if cfg.shared_attn_every or cfg.ssm not in (None, "mamba1"):
+        what, item = "the Mamba-2 hybrid stack (zamba2)", "12b"
+    elif cfg.ssm is not None:
+        return
     elif cfg.attn_type != "gqa":
         what, item = f"{cfg.attn_type} attention", "12d"
     elif cfg.enc_dec:
@@ -60,7 +68,7 @@ def check_supported(cfg: ArchConfig) -> None:
         return
     raise NotImplementedError(
         f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1, item "
-        f"{item}); the port serves dense GQA decoders")
+        f"{item}); the port serves GQA decoders (dense or MoE) and Mamba-1")
 
 
 def layer_params(stacked, i: int):
@@ -75,13 +83,22 @@ def layer_params(stacked, i: int):
 
 
 def _layer_init(generator, cfg: ArchConfig, dt: Dtypes, device):
+    """One layer: a Mamba-1 block for an SSM stack, else attention and an
+    MLP (``"moe"`` in place of ``"mlp"`` for an MoE config)."""
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dt.param, device=device)
-    return {
+    if cfg.ssm is not None:
+        return {"attn_norm": zeros(),
+                "ssm": S.mamba_init(generator, cfg, dt, device)}
+    p = {
         "attn_norm": zeros(),
         "attn": L.gqa_init(generator, cfg, dt, device),
         "mlp_norm": zeros(),
-        "mlp": L.mlp_init(generator, cfg, dt, device),
     }
+    if cfg.is_moe:
+        p["moe"] = L.moe_init(generator, cfg, dt, device)
+    else:
+        p["mlp"] = L.mlp_init(generator, cfg, dt, device)
+    return p
 
 
 def _stack_into(stacked, i, layer):
@@ -102,7 +119,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     """Random parameters drawn from ``generator``, which must live on
     ``device``. The layers are drawn one at a time into preallocated
     stacks, so beside the model only one layer's weights exist at once
-    (qwen3-14b in float32 is 59.07 GB)."""
+    (qwen3-14b in float32 is 59.07 GB, falcon-mamba-7b 28.02 GB)."""
     dev = resolve_device(device, "init_params")
     check_supported(cfg)
     if generator.device.type != dev.type:
@@ -131,12 +148,20 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(p, h, cfg: ArchConfig):
+    """The layer's MLP, or its MoE on the capacity path as the reference
+    serves it."""
+    if cfg.is_moe:
+        return L.moe_apply(p["moe"], h, cfg)
+    return L.mlp_apply(p["mlp"], h, cfg)
+
+
 def _attn_mlp_block(p, x, cfg: ArchConfig, *, positions, inference=False):
-    """Pre-norm attention + MLP."""
+    """Pre-norm attention + MLP/MoE."""
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     x = x + _gqa_train(p["attn"], h, cfg, positions, inference)
     h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h, cfg)
+    return x + _ffn(p, h, cfg)
 
 
 def _qkv(p, h, cfg: ArchConfig, positions):
@@ -188,8 +213,11 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
     check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg, dt, frontend)
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x = _scan_attn(params["layers"], x, cfg, positions, inference)
+    if cfg.ssm is not None:
+        x = _scan_ssm(params["layers"], x, cfg)
+    else:
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        x = _scan_attn(params["layers"], x, cfg, positions, inference)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -197,6 +225,17 @@ def _scan_attn(stacked, x, cfg: ArchConfig, positions, inference=False):
     for i in range(cfg.n_layers):
         x = _attn_mlp_block(layer_params(stacked, i), x, cfg,
                             positions=positions, inference=inference)
+    return x
+
+
+def _scan_ssm(stacked, x, cfg: ArchConfig):
+    """Pre-norm Mamba-1 layers over the whole sequence from zero states:
+    one K8 launch per layer on the card."""
+    for i in range(cfg.n_layers):
+        lp = layer_params(stacked, i)
+        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        y, _ = S.mamba_apply(lp["ssm"], h, cfg)
+        x = x + y
     return x
 
 
@@ -211,10 +250,16 @@ def _w_out(params, cfg: ArchConfig):
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dt: Dtypes = L.FP32, *, device="cuda"):
-    """The zeroed KV cache: ``{"kv": (k, v)}``, each
-    ``(L, batch, max_seq, nk, hd)``."""
+    """The zeroed decode cache: ``{"kv": (k, v)}``, each ``(L, batch,
+    max_seq, nk, hd)``, or for a Mamba-1 stack ``{"ssm": {"conv": (L,
+    batch, K-1, di), "h": (L, batch, di, n)}}``, both float32 as in the
+    reference (which sizes no KV cache for it)."""
     dev = resolve_device(device, "init_cache")
     check_supported(cfg)
+    if cfg.ssm is not None:
+        st = S.mamba_init_state(cfg, cfg.n_layers * batch, device=dev)
+        return {"ssm": {k: v.reshape((cfg.n_layers, batch) + v.shape[1:])
+                        for k, v in st.items()}}
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return {"kv": (torch.zeros(shape, dtype=dt.compute, device=dev),
@@ -246,14 +291,18 @@ def _decode_gqa(p, x, cfg, cache_kv, lengths, *, positions_t):
 def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
                 dt: Dtypes = L.FP32, *, enc_out=None):
     """One decoding step for the whole batch: tokens ``(B, 1)``, lengths
-    ``(B,)``. Returns ``(logits (B, V), cache)``; the cache is updated in
-    place (the reference returns a new one) and returned."""
+    ``(B,)`` (unused by a Mamba-1 stack, whose state carries the
+    position). Returns ``(logits (B, V), cache)``; the cache is updated
+    in place (the reference returns a new one) and returned."""
     check_supported(cfg)
     if enc_out is not None:
         raise NotImplementedError("decode_step: cross attention is not "
                                   "ported yet (ROADMAP queue 1, item 12d)")
     x = params["embed"][tokens.long()].to(dt.compute)
-    x = _dense_decode(params, x, cache, lengths, cfg, lengths[:, None])
+    if cfg.ssm is not None:
+        x = _ssm_decode(params, x, cache, cfg)
+    else:
+        x = _dense_decode(params, x, cache, lengths, cfg, lengths[:, None])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x[:, 0].float() @ _w_out(params, cfg).float()
     return logits, cache
@@ -269,7 +318,22 @@ def _dense_decode(params, x, cache, lengths, cfg, positions_t):
                            positions_t=positions_t)
         y = x + a
         h = L.rms_norm(y, lp["mlp_norm"], cfg.norm_eps)
-        x = y + L.mlp_apply(lp["mlp"], h, cfg)
+        x = y + _ffn(lp, h, cfg)
+    return x
+
+
+def _ssm_decode(params, x, cache, cfg):
+    """The Mamba-1 stack, one recurrent step a layer; each layer's conv
+    window and state are overwritten in place with the new ones."""
+    conv, hs = cache["ssm"]["conv"], cache["ssm"]["h"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        y, st = S.mamba_apply(lp["ssm"], h, cfg,
+                              state={"conv": conv[i], "h": hs[i]})
+        conv[i].copy_(st["conv"])
+        hs[i].copy_(st["h"])
+        x = x + y
     return x
 
 

@@ -1,7 +1,9 @@
 """Card-only tests of the port: the CUDA kernels (wave steps, hazard
-frontier, forwarding, ELL SpMV, histogram, flash and decode attention)
-against their plain torch versions, a reduced qwen3-14b's prefill and
-decode step on the card against the CPU, the main path on the card against the oracle (a speculative
+frontier, forwarding, ELL SpMV, histogram, flash and decode attention,
+selective scan, grouped expert matmul) against their plain torch
+versions, a reduced qwen3-14b's and falcon-mamba-7b's prefill and decode
+step and a reduced phi3.5-moe's prefill and dropless MoE layer on the
+card against the CPU, the main path on the card against the oracle (a speculative
 and a streaming program included), the substrate ops, and the DU-kernel
 cross-checks of a WavePlan on the card.
 
@@ -40,6 +42,10 @@ from repro_torch.kernels.attention.ref import (
     flash_attention_ref,
     flash_gqa_ref,
 )
+from repro_torch.kernels.moe_group_mm import kernel as k9
+from repro_torch.kernels.moe_group_mm.ref import group_matmul_ref
+from repro_torch.kernels.ssm_scan import kernel as k8
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_ref
 from repro_torch.models import convert, layers as L, transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -399,3 +405,133 @@ def test_reduced_qwen3_on_card_matches_the_cpu(cuda):
     assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
     for a, b in zip(got_c["kv"], want_c["kv"]):
         assert torch.allclose(a.cpu(), b, atol=2e-3, rtol=1e-3)
+
+
+# K8 against its plain version: float32 within the reference's kernel
+# bound (1e-4; the exponentials and the state sum round differently);
+# bfloat16 outputs within 2e-2, about two bfloat16 steps of outputs
+# below 2, since both round one float32 result
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _scan_inputs(seed, b, s, di, n, device):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    xi, bm, cm = r(b, s, di) * 0.5, r(b, s, n) * 0.5, r(b, s, n) * 0.5
+    dt = torch.nn.functional.softplus(r(b, s, di))
+    a_neg = -torch.exp(r(di, n) * 0.3)
+    h0 = r(b, di, n)
+    return [t.to(device) for t in (xi, dt, bm, cm, a_neg, h0)]
+
+
+@pytest.mark.parametrize("b,s,di,n,with_h0", [
+    (1, 64, 64, 8, False), (2, 1000, 8192 - 96, 16, True),
+    (3, 1, 33, 5, True), (4, 128, 512, 16, False),
+])
+def test_ssm_scan_kernel_matches_plain(cuda, b, s, di, n, with_h0):
+    xi, dt, bm, cm, a_neg, h0 = _scan_inputs(13, b, s, di, n, cuda)
+    h0 = h0 if with_h0 else None
+    before = k8.ssm_scan.launches
+    y, h = k8.selective_scan(xi, dt, bm, cm, a_neg, h0)
+    y_ref, h_ref = selective_scan_ref(xi, dt, bm, cm, a_neg, h0)
+    torch.cuda.synchronize()
+    assert k8.ssm_scan.launches == before + 1
+    assert y.shape == (b, s, di) and h.shape == (b, di, n)
+    assert (y - y_ref).abs().max().item() <= SCAN_TOL[torch.float32]
+    assert (h - h_ref).abs().max().item() <= SCAN_TOL[torch.float32]
+
+
+def test_ssm_scan_kernel_reference_signature_and_bfloat16(cuda):
+    xi, dt, bm, cm, a_neg, _ = _scan_inputs(14, 1, 96, 160, 16, cuda)
+    got = k8.ssm_scan(xi[0], dt[0], bm[0], cm[0], a_neg)
+    want = ssm_scan_ref(xi[0], dt[0], bm[0], cm[0], a_neg)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= SCAN_TOL[torch.float32]
+    xb = xi.to(torch.bfloat16)
+    got_b, _ = k8.selective_scan(xb, dt, bm, cm, a_neg)
+    want_b, _ = selective_scan_ref(xb, dt, bm, cm, a_neg)
+    torch.cuda.synchronize()
+    assert got_b.dtype == torch.bfloat16
+    assert ((got_b.float() - want_b.float()).abs().max().item()
+            <= SCAN_TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="state size"):
+        k8.selective_scan(xi, dt, torch.zeros(1, 96, 17, device=cuda),
+                          torch.zeros(1, 96, 17, device=cuda),
+                          torch.zeros(160, 17, device=cuda))
+
+
+# K9 against its plain version: float32 within 1e-4 (sums of up to 256
+# products in another order than cuBLAS's); bfloat16 within 2e-2
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,din,dout,bt,nb", [
+    (4, 32, 48, 16, 8), (8, 16, 16, 8, 16), (3, 100, 130, 200, 3),
+    (16, 256, 384, 128, 4),
+])
+def test_group_matmul_kernel_matches_plain(cuda, e, din, dout, bt, nb, dtype):
+    g = torch.Generator().manual_seed(e * din)
+    x = torch.randn(nb * bt, din, generator=g).to(cuda, dtype)
+    w = (torch.randn(e, din, dout, generator=g) * 0.1).to(cuda, dtype)
+    be = torch.randint(0, e, (nb + 2,), generator=g, dtype=torch.int32)
+    be = be.to(cuda)
+    before = k9.group_matmul.launches
+    got = k9.group_matmul(x, w, be, block_t=bt)
+    want = group_matmul_ref(x, w, be, block_t=bt)
+    torch.cuda.synchronize()
+    assert k9.group_matmul.launches == before + 1
+    assert got.shape == (nb * bt, dout) and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= GMM_TOL[dtype]
+
+
+def test_reduced_phi35_moe_on_card_matches_the_cpu(cuda):
+    """A reduced phi3.5-moe's prefill (capacity path, K6 per layer) and
+    its dropless MoE layer (three K9 launches) on the card against the
+    CPU, at the reference's decode tolerance."""
+    cfg = configs.get("phi3.5-moe-42b-a6.6b").reduced()
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                        device="cpu")
+    card = convert.from_reference(convert.to_numpy(cpu), device=cuda)
+    tok = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 24)))
+    got, _ = T.prefill(card, tok.to(cuda), cfg, L.FP32)
+    want, _ = T.prefill(cpu, tok, cfg, L.FP32)
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32))
+    lp = T.layer_params(card["layers"], 0)["moe"]
+    n9 = k9.group_matmul.launches
+    got = L.moe_apply(lp, x.to(cuda), cfg, use_kernel=True)
+    assert k9.group_matmul.launches - n9 == 3
+    want = L.moe_apply(T.layer_params(cpu["layers"], 0)["moe"], x, cfg,
+                       use_kernel=True)
+    assert torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_reduced_falcon_mamba_on_card_matches_the_cpu(cuda):
+    """A reduced falcon-mamba-7b's prefill (one K8 launch per layer) and
+    a decode step on the card against the CPU, at the reference's decode
+    tolerance."""
+    cfg = configs.get("falcon-mamba-7b").reduced()
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                        device="cpu")
+    card = convert.from_reference(convert.to_numpy(cpu), device=cuda)
+    tok = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)))
+    n8 = k8.ssm_scan.launches
+    got, cache = T.prefill(card, tok.to(cuda), cfg, L.FP32)
+    want, _ = T.prefill(cpu, tok, cfg, L.FP32)
+    assert k8.ssm_scan.launches - n8 == cfg.n_layers
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+    cache_cpu = T.init_cache(cfg, 2, 40, L.FP32, device="cpu")
+    lens = torch.zeros(2, dtype=torch.int32)
+    got, cache = T.decode_step(card, tok[:, :1].to(cuda), cache,
+                               lens.to(cuda), cfg, L.FP32)
+    want, cache_cpu = T.decode_step(cpu, tok[:, :1], cache_cpu, lens, cfg,
+                                    L.FP32)
+    assert k8.ssm_scan.launches - n8 == cfg.n_layers
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+    for key in ("conv", "h"):
+        assert torch.allclose(cache["ssm"][key].cpu(), cache_cpu["ssm"][key],
+                              atol=2e-3, rtol=1e-3)

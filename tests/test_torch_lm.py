@@ -29,10 +29,16 @@ from repro_torch.launch import serve, steps
 from repro_torch.models import convert, layers as L, transformer as T
 
 TOL = dict(atol=2e-3, rtol=1e-3)
-SERVED = ["qwen3-14b", "starcoder2-7b", "internvl2-76b"]
+SERVED = ["qwen3-14b", "starcoder2-7b", "internvl2-76b", "falcon-mamba-7b",
+          "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b"]
+# prefill and teacher-forced decode compute one function only without
+# experts: an MoE layer's capacity (1.25·T·k/E) differs between a prompt
+# of B·S tokens and a decode step of B, so decode drops other tokens
+TEACHER_FORCED = [n for n in SERVED if not configs.get(n).is_moe]
+NEW_FAMILIES = ["falcon-mamba-7b", "phi3.5-moe-42b-a6.6b",
+                "moonshot-v1-16b-a3b"]
 NOT_SERVED = {
-    "falcon-mamba-7b": "12b", "zamba2-7b": "12b",
-    "phi3.5-moe-42b-a6.6b": "12c", "moonshot-v1-16b-a3b": "12c",
+    "zamba2-7b": "12b",
     "minicpm3-4b": "12d", "gemma3-4b": "12d", "whisper-tiny": "12d",
 }
 
@@ -93,6 +99,29 @@ def test_qwen3_14b_size():
         40, 5120, 40, 8, 128, 17408, 151936)
 
 
+def _f32_gb(cfg):
+    """Gigabytes of the reference's parameters for ``cfg`` in float32,
+    from their shapes alone (nothing is allocated)."""
+    shapes = jax.eval_shape(
+        lambda k: ref_T.init_params(k, cfg, ref_L.FP32), jax.random.PRNGKey(0))
+    return sum(a.size for a in jax.tree.leaves(shapes)) * 4 / 1e9
+
+
+def test_falcon_mamba_and_phi35_moe_sizes():
+    """The card run's new models: falcon-mamba-7b whole (28.02 GB in
+    float32), phi3.5-moe at 5.20 GB a layer, so 12 of its 32 layers
+    (63.47 GB) fit one 80 GB card."""
+    fm = ref_configs.get("falcon-mamba-7b")
+    assert _f32_gb(fm) == pytest.approx(28.02, abs=0.005)
+    assert (fm.n_layers, fm.d_model, fm.expand * fm.d_model, fm.ssm_state,
+            fm.vocab) == (64, 4096, 8192, 16, 65024)
+    phi = ref_configs.get("phi3.5-moe-42b-a6.6b")
+    one, cut = (_f32_gb(dataclasses.replace(phi, n_layers=n))
+                for n in (1, 12))
+    assert (cut - one) / 11 == pytest.approx(5.20, abs=0.005)
+    assert cut == pytest.approx(63.47, abs=0.005)
+
+
 # ---------------------------------------------------------------------------
 # layers and the weight carry-over
 # ---------------------------------------------------------------------------
@@ -142,6 +171,21 @@ def test_convert_round_trips_bit_for_bit():
         cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
 
 
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_convert_carries_the_nested_ssm_and_moe_dicts(name):
+    """The Mamba-1 (``layers.ssm``) and MoE (``layers.moe``, moonshot's
+    ``moe.shared``) dicts go across leaf by leaf, bit for bit."""
+    _, params_r, _, params = _models(name)
+    want = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(np.asarray, params_r))
+    got = jax.tree_util.tree_leaves_with_path(convert.to_numpy(params))
+    assert [p for p, _ in want] == [p for p, _ in got]
+    for (_, a), (_, b) in zip(want, got):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    group = "ssm" if name.startswith("falcon") else "moe"
+    assert isinstance(params["layers"][group], dict)
+
+
 @pytest.mark.parametrize("name", SERVED)
 def test_init_params_has_the_reference_structure(name):
     cfg_r, params_r, cfg, _ = _models(name)
@@ -151,7 +195,8 @@ def test_init_params_has_the_reference_structure(name):
     got = jax.tree_util.tree_leaves_with_path(convert.to_numpy(mine))
     assert [(p, a.shape, str(a.dtype)) for p, a in want] == [
         (p, a.shape, str(a.dtype)) for p, a in got]
-    wq = mine["layers"]["attn"]["wq"]
+    group, key = ("ssm", "w_in") if cfg.ssm else ("attn", "wq")
+    wq = mine["layers"][group][key]
     assert not torch.equal(wq[0], wq[1])  # each layer drawn anew
     std = wq.std().item() * cfg.d_model ** 0.5
     assert 0.9 < std < 1.1
@@ -168,7 +213,8 @@ def test_init_params_has_the_reference_structure(name):
 @pytest.mark.parametrize("name", SERVED)
 def test_forward_and_prefill_match_reference(name):
     cfg_r, params_r, cfg, params = _models(name)
-    b, s = 2, 24
+    # the reference's Mamba scan needs S to divide by its chunk (16)
+    b, s = 2, 32 if cfg.ssm else 24
     tok = _tokens(3, cfg, b, s)
     fe = _frontend(cfg, b)
     want = ref_T.forward_hidden(params_r, jnp.asarray(tok), cfg_r, ref_L.FP32,
@@ -186,7 +232,10 @@ def test_forward_and_prefill_match_reference(name):
     assert got_l.shape == (b, cfg.vocab)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **TOL)
     # the reference's prefill returns a fresh cache; so does the port's
-    for a, c in zip(want_c["kv"], got_c["kv"]):
+    want_leaves = jax.tree_util.tree_leaves_with_path(want_c)
+    got_leaves = jax.tree_util.tree_leaves_with_path(got_c)
+    assert [p for p, _ in want_leaves] == [p for p, _ in got_leaves]
+    for (_, a), (_, c) in zip(want_leaves, got_leaves):
         assert c.shape == a.shape and not c.any()
 
 
@@ -195,25 +244,34 @@ def test_decode_step_matches_reference(name):
     cfg_r, params_r, cfg, params = _models(name)
     b, cap = 2, 32
     rng = np.random.default_rng(4)
-    shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
-    ck, cv = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
     lengths = np.array([3, 7], np.int32)
     tok = _tokens(5, cfg, b, 1)
+    if cfg.ssm:  # a random carried state: conv window and h
+        cache = jax.tree.map(
+            lambda a: rng.standard_normal(a.shape).astype(np.float32),
+            ref_T.init_cache(cfg_r, b, cap, ref_L.FP32))
+    else:
+        shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache = {"kv": tuple(rng.standard_normal(shape).astype(np.float32)
+                             for _ in "kv")}
     want_l, want_c = ref_T.decode_step(
-        params_r, jnp.asarray(tok), {"kv": (jnp.asarray(ck), jnp.asarray(cv))},
+        params_r, jnp.asarray(tok), jax.tree.map(jnp.asarray, cache),
         jnp.asarray(lengths), cfg_r, ref_L.FP32)
-    cache = {"kv": (torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()))}
-    got_l, got_c = T.decode_step(params, torch.from_numpy(tok), cache,
-                                 torch.from_numpy(lengths), cfg, L.FP32)
+    got_l, got_c = T.decode_step(
+        params, torch.from_numpy(tok),
+        jax.tree.map(lambda a: torch.from_numpy(a.copy()), cache),
+        torch.from_numpy(lengths), cfg, L.FP32)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **TOL)
-    for mine, theirs, before in zip(got_c["kv"], want_c["kv"], (ck, cv)):
+    for mine, theirs in zip(jax.tree.leaves(got_c), jax.tree.leaves(want_c)):
         np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), **TOL)
-        changed = (mine.numpy() != before).any(axis=(0, 3, 4))
-        assert changed.tolist() == [[i == 3 for i in range(cap)],
-                                    [i == 7 for i in range(cap)]]
+    if not cfg.ssm:
+        for mine, before in zip(got_c["kv"], cache["kv"]):
+            changed = (mine.numpy() != before).any(axis=(0, 3, 4))
+            assert changed.tolist() == [[i == 3 for i in range(cap)],
+                                        [i == 7 for i in range(cap)]]
 
 
-@pytest.mark.parametrize("name", SERVED)
+@pytest.mark.parametrize("name", TEACHER_FORCED)
 def test_teacher_forced_decode_matches_forward(name):
     """Decode over the prompt, one token a step, gives the forward pass's
     last-token logits, in the port and against the reference's forward."""
@@ -235,13 +293,22 @@ def test_teacher_forced_decode_matches_forward(name):
 
 
 def test_serve_batch_tokens_match_reference():
+    _check_serve_batch("qwen3-14b")
+
+
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_serve_batch_tokens_match_reference_ssm_and_moe(name):
+    _check_serve_batch(name)
+
+
+def _check_serve_batch(name):
     """Greedy tokens equal the reference's. Equality means something only
     where the step's top-2 logit margin exceeds twice the logit
     tolerance, so the margins along the reference's own greedy path are
     computed first (teacher-forced through the port), and each row's
     tokens are held equal up to its first step below that margin (the
     whole row where there is none)."""
-    cfg_r, params_r, cfg, params = _models("qwen3-14b")
+    cfg_r, params_r, cfg, params = _models(name)
     b, p, max_new = 2, 8, 8
     prompts = _tokens(8, cfg, b, p)
     prompts[0, -2:] = 0  # zero pads are fed as tokens, as the reference does
@@ -267,6 +334,16 @@ def test_serve_batch_tokens_match_reference():
     assert got.dtype == torch.int32 and got.shape == (b, max_new)
     for row, n in enumerate(checked):
         assert got[row, :n].tolist() == want[row, :n].tolist(), row
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES[:2])
+def test_serve_main_runs_the_new_families_on_the_cpu(arch, capsys):
+    toks = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "4", "--max-new", "3",
+                       "--n-layers", "1"])
+    assert toks.shape == (2, 3) and toks.dtype == torch.int32
+    assert ((toks >= 0) & (toks < 256)).all()
+    assert "layers=1 " in capsys.readouterr().out
 
 
 def test_serve_main_runs_on_the_cpu():
@@ -305,7 +382,6 @@ def test_out_of_slice_configs_raise(name):
 def test_unported_layers_raise():
     cfg = configs.get("qwen3-14b").reduced()
     for fn, item in ((L.mla_init, "12d"), (L.mla_apply, "12d"),
-                     (L.moe_init, "12c"), (L.moe_apply, "12c"),
                      (L.gqa_apply, "12d")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn(None, cfg)
