@@ -18,15 +18,19 @@ failure exits non-zero:
    lanes x 8 steps (WAR aliasing, clipped gathers, NaN payloads), on
    one 8-lane step, on an L2-resident image (64 steps, where barriers
    weigh more), with the cost of one grid barrier at each grid timed
-   alone; the hazard frontier kernel (K2) at K=4 rows, S=D=65536, both
-   sides (monotonic rows with equal-address runs and negative
-   addresses, timed beside ``torch.searchsorted``; one unsorted row in
-   a second, untimed case); the forwarding kernel (K3) at
+   alone; the hazard frontier kernel (K2) at K=4 rows, S=D=65536, and
+   at fused_raw_loops' K=1, S=D=2**20, both sides (monotonic rows with
+   equal-address runs and negative addresses, the whole wrapper call
+   timed beside ``torch.searchsorted`` (the median of 7 runs of 20
+   calls), with the card's time alone and the host's per call beside it;
+   one unsorted row at K=4 in a third case, timed too); the forwarding
+   kernel (K3) at
    S=D=2**20 over a float64 memory of 2**24 + 1 words, about 30% of the
    producers invalid, ``lookback=min_lookback(src)``; the ELL SpMV
    kernel (K4) on a seeded CSR of 2**20 rows (lengths 1..16, columns
    sorted and distinct in each row over 2**20), float32, timed beside
-   one cuSPARSE product (``torch.mv`` on a sparse CSR tensor); the
+   one cuSPARSE product (``torch.mv`` on a sparse CSR tensor), timed as
+   K2 is, and at matpower's shape (512 rows at 8x, W=4, float64 x); the
    histogram kernel (K5) at N=2**26 with 32 bins (about 1% of the data
    -1 and 1% past the last bin) beside ``torch.bincount``, and at
    N=2**24 with 2**16 bins on its global-memory path; the flash
@@ -138,10 +142,12 @@ BIG_M, BIG_W, BIG_S = 2**24 + 1, 2**20, 8
 L2_M, L2_W, L2_S = 2**18 + 1, 2**18, 64
 SYNC_STEPS = (100, 1100)
 K2_K, K2_S, K2_D = 4, 65536, 65536
+K2_BIG = 2**20  # fused_raw_loops' shape on the DU path: K=1, S=D=2**20
 K3_S = K3_D = 2**20
 K3_M = 2**24 + 1
 K3_INVALID = 0.3
 REPS = 20
+TRIALS = 7  # K2 and K4 against their library calls: median of 7 runs
 K4_N = K4_M = 2**20
 K4_MAX_ROW, K4_BLOCK_R = 16, 128
 K5_N, K5_BINS = 2**26, 32
@@ -258,17 +264,24 @@ def _sync_us(grid: int) -> float:
     return (hi - lo) * 1e3 / (2 * (SYNC_STEPS[1] - SYNC_STEPS[0]))
 
 
-def _time_ms(fn, reps: int) -> float:
+def _time_ms(fn, reps: int, trials: int = 1) -> float:
+    """Milliseconds a call takes back to back, by CUDA events around
+    ``reps`` calls after a warm-up; with ``trials`` > 1 the median of that
+    many such runs, which a stall of the shared host in one run does not
+    move."""
     fn()  # warm-up
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    runs = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / reps)
+    return float(np.median(runs))
 
 
 def check_wave_kernel(seed, m, s, w, *, timed):
@@ -314,63 +327,107 @@ def _bits_equal(got: dict, want: dict) -> bool:
     return all(got[k].tobytes() == want[k].tobytes() for k in want)
 
 
-def k2_inputs(seed, *, unsorted_row):
-    """``(K, S)`` src rows, non-decreasing with equal-address runs and
+def _device_ms(fn, reps: int) -> float:
+    """Milliseconds of card time a call takes, launch gaps included but
+    not the host's cost: the card first runs a ~2 ms elementwise pass
+    while the host queues ``reps`` calls behind it, and CUDA events time
+    the queued calls. Where ``_time_ms`` (which times back-to-back calls)
+    exceeds this, the host bounds the call."""
+    fn()
+    busy = torch.empty(2**27, device="cuda")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        busy.mul_(1.0)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _enqueue_us(fn, reps: int) -> float:
+    """Host microseconds a call takes to return (launches enqueued, the
+    card not waited for): where it nears a call's CUDA-event time, the
+    host, not the card, bounds back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / reps * 1e6
+
+
+def k2_inputs(seed, k, s, d, *, unsorted_row):
+    """``(k, s)`` src rows, non-decreasing with equal-address runs and
     negative addresses (the last row shuffled when ``unsorted_row``),
-    and ``(K, D)`` dst rows, a fifth of them on src addresses and some
+    and ``(k, d)`` dst rows, a fifth of them on src addresses and some
     outside the rows' range; int32 tensors on the card."""
     rng = np.random.default_rng(seed)
-    src = np.sort(rng.integers(-2**20, 2**20, (K2_K, K2_S)), axis=1)
+    src = np.sort(rng.integers(-2**20, 2**20, (k, s)), axis=1)
     src[:, 1::4] = src[:, 0::4]
     if unsorted_row:
         rng.shuffle(src[-1])
-    dst = rng.integers(-2**20 - 64, 2**20 + 64, (K2_K, K2_D))
-    on = rng.integers(0, K2_S, (K2_K, K2_D // 5))
+    dst = rng.integers(-2**20 - 64, 2**20 + 64, (k, d))
+    on = rng.integers(0, s, (k, d // 5))
     dst[:, ::5][:, :on.shape[1]] = np.take_along_axis(src, on, axis=1)
     return (torch.from_numpy(src.astype(np.int32)).cuda(),
             torch.from_numpy(dst.astype(np.int32)).cuda())
 
 
-def check_hazard_kernel(*, unsorted_row, timed):
+def check_hazard_kernel(seed, k, s, d, *, unsorted_row, plain_reps=REPS):
     """K2 against ``hazard_frontier_batch_ref`` on both sides, bit for
-    bit; with ``timed`` (monotonic rows only) also
-    ``torch.searchsorted``, which must agree, and all three timed."""
+    bit, each side's whole wrapper call timed (CUDA events, and the
+    host's enqueue time) beside the plain version (``plain_reps`` 0: not
+    timed) and, on monotonic rows, ``torch.searchsorted``, which must
+    agree. The bytes bound is the function's; with an unsorted row the
+    compare bound of counting that row is given too."""
     from repro_torch.kernels.du_hazard import kernel
     from repro_torch.kernels.du_hazard.ref import hazard_frontier_batch_ref
 
-    src, dst = k2_inputs(4 + unsorted_row, unsorted_row=unsorted_row)
-    out = {"K": K2_K, "S": K2_S, "D": K2_D, "unsorted_row": unsorted_row}
+    src, dst = k2_inputs(seed, k, s, d, unsorted_row=unsorted_row)
+    # the function: each row's src and dst read once, frontiers out
+    bound_ms = (s + 2 * d) * 4 * k / HBM_BYTES_PER_S * 1e3
+    out = {"K": k, "S": s, "D": d, "unsorted_row": unsorted_row,
+           "bound_ms": bound_ms}
+    if unsorted_row:
+        # the counting path: a compare and an add per (src, dst) pair
+        out["unsorted_compare_bound_ms"] = (
+            2 * s * d / _int32_ops_per_s() * 1e3
+        )
     for side in ("right", "left"):
         got = kernel.hazard_frontier_batch(src, dst, side=side)
         want = hazard_frontier_batch_ref(src, dst, side=side)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"hazard kernel != plain version ({side}, "
-                                 f"unsorted_row={unsorted_row})")
-        row = {"max_abs_err": float((got - want).abs().max().item())}
-        if timed:
+                                 f"K={k} S={s}, unsorted_row="
+                                 f"{unsorted_row})")
+        err = float((got - want).abs().max().item())
+        del want
+        run = lambda: kernel.hazard_frontier_batch(src, dst, side=side)
+        row = {"max_abs_err": err, "ms": _time_ms(run, REPS, TRIALS),
+               "device_ms": _device_ms(run, REPS),
+               "host_us": _enqueue_us(run, REPS)}
+        row["bound_share"] = bound_ms / row["ms"]
+        if plain_reps:
+            row["plain_ms"] = _time_ms(
+                lambda: hazard_frontier_batch_ref(src, dst, side=side),
+                plain_reps)
+        if not unsorted_row:
             right = side == "right"
             lib = torch.searchsorted(src, dst, right=right, out_int32=True)
             if not torch.equal(lib, got):
                 raise AssertionError(f"searchsorted != kernel ({side})")
-            row["ms"] = _time_ms(
-                lambda: kernel.hazard_frontier_batch(src, dst, side=side),
-                REPS)
-            row["plain_ms"] = _time_ms(
-                lambda: hazard_frontier_batch_ref(src, dst, side=side), REPS)
-            row["library_ms"] = _time_ms(
-                lambda: torch.searchsorted(src, dst, right=right,
-                                           out_int32=True), REPS)
+            lib_run = lambda: torch.searchsorted(src, dst, right=right,
+                                                 out_int32=True)
+            row["library_ms"] = _time_ms(lib_run, REPS, TRIALS)
+            row["library_device_ms"] = _device_ms(lib_run, REPS)
         out[side] = row
-    if timed:
-        # the function: each row's src and dst read once, frontiers out
-        out["bound_ms"] = (
-            (K2_S + 2 * K2_D) * 4 * K2_K / HBM_BYTES_PER_S * 1e3
-        )
-        # this design: a compare and an add per (src, dst) pair
-        out["compare_bound_ms"] = (
-            2 * K2_K * K2_S * K2_D / _int32_ops_per_s() * 1e3
-        )
     return out
 
 
@@ -460,53 +517,72 @@ def _gamma(n, unit):
     return n * unit / (1 - n * unit)
 
 
-def check_spmv_kernel():
+def matpower_csr():
+    """matpower's matrix at 8x (the substrate path's shape): CSR arrays,
+    float64 values, and its float64 ``x``."""
+    from repro_torch.core import programs
+
+    _, arrays, _ = programs.get("matpower").make(SCALES_8X["matpower"])
+    rp = np.asarray(arrays["rp"], dtype=np.int64)
+    return (rp, np.asarray(arrays["cidx"], dtype=np.int64),
+            np.asarray(arrays["val"], dtype=np.float64),
+            np.asarray(arrays["x"], dtype=np.float64))
+
+
+def check_spmv_kernel(rp, ci, vv, x, block_r):
     """K4 against ``csr_spmv_ref`` on the card, bit for bit, and one
-    cuSPARSE product (``torch.mv`` on a sparse CSR tensor) within twice
-    the float32 matvec bound γ_{W+3}·|A||x| (W products and sums, the
-    rounding of vals and x): each sum order is within the bound of the
-    exact product, so two orders are within twice it. All three timed."""
+    cuSPARSE product (``torch.mv`` on a sparse CSR tensor of ``vv``'s and
+    ``x``'s dtype) within twice the float32 matvec bound γ_{W+3}·|A||x|
+    (W products and sums, the rounding of vals and x): each sum order is
+    within the bound of the exact product, so two orders are within twice
+    it. The whole wrapper call (CUDA events, and the host's enqueue time),
+    the plain version and cuSPARSE timed."""
     from repro_torch.kernels.csr_spmv import kernel
     from repro_torch.kernels.csr_spmv.ref import csr_spmv_ref, csr_to_ell
 
-    rp, ci, vv, x = k4_inputs(8)
-    cols, vals = csr_to_ell(rp, ci, vv, K4_N, K4_BLOCK_R)
+    n, m = len(rp) - 1, len(x)
+    cols, vals = csr_to_ell(rp, ci, vv, n, block_r)
     c, v, xd = (torch.from_numpy(a).cuda() for a in (cols, vals, x))
-    got = kernel.csr_spmv(c, v, xd, block_r=K4_BLOCK_R)
+    got = kernel.csr_spmv(c, v, xd, block_r=block_r)
     want = csr_spmv_ref(c, v, xd)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError("csr_spmv kernel != plain version")
+        raise AssertionError(f"csr_spmv kernel != plain version at N={n}")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         lib_a = torch.sparse_csr_tensor(
             torch.from_numpy(rp).cuda(), torch.from_numpy(ci).cuda(),
-            torch.from_numpy(vv).cuda(), size=(K4_N, K4_M),
+            torch.from_numpy(vv).cuda(), size=(n, m),
             check_invariants=False,
         )
         lib = torch.mv(lib_a, xd)
     w = cols.shape[1]
     slack = 2 * _gamma(w + 3, F32_UNIT) * _csr_abs_matvec(rp, ci, vv, x)
-    lib_err = (lib - got).abs().double().cpu().numpy()
+    lib_err = (lib - got[:n]).abs().double().cpu().numpy()
     if not (lib_err <= slack).all():
         raise AssertionError("cuSPARSE and the K4 kernel differ by more "
                              "than the float32 matvec bound")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
-        library_ms = _time_ms(lambda: torch.mv(lib_a, xd), REPS)
+        library_ms = _time_ms(lambda: torch.mv(lib_a, xd), REPS, TRIALS)
+        library_device_ms = _device_ms(lambda: torch.mv(lib_a, xd), REPS)
+    run = lambda: kernel.csr_spmv(c, v, xd, block_r=block_r)
+    ms = _time_ms(run, REPS, TRIALS)
+    # the ELL arrays read once, y written once, x read once (it stays in
+    # L2 for the gathers)
+    bound_ms = (cols.size * 8 + (c.shape[0] + m) * x.itemsize
+                ) / HBM_BYTES_PER_S * 1e3
     return {
-        "N": K4_N, "M": K4_M, "W": w, "nnz": int(rp[-1]),
+        "N": n, "N_pad": c.shape[0], "M": m, "W": w, "nnz": int(rp[-1]),
+        "x_dtype": str(x.dtype), "vector_loads": kernel.vector_loads(c, v, xd),
         "max_abs_err": float((got - want).abs().max().item()),
         "library_max_abs_err": float(lib_err.max()),
         "library_max_err_over_bound": float((lib_err / slack).max()),
-        "ms": _time_ms(lambda: kernel.csr_spmv(c, v, xd,
-                                               block_r=K4_BLOCK_R), REPS),
+        "ms": ms, "device_ms": _device_ms(run, REPS),
+        "host_us": _enqueue_us(run, REPS),
         "plain_ms": _time_ms(lambda: csr_spmv_ref(c, v, xd), REPS),
-        "library_ms": library_ms,
-        # the ELL arrays read once, y written once, x read once (its 4 MB
-        # stay in L2)
-        "bound_ms": (cols.size * 8 + K4_N * 4 + K4_M * 4)
-        / HBM_BYTES_PER_S * 1e3,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
+        "bound_ms": bound_ms, "bound_share": bound_ms / ms,
     }
 
 
@@ -1523,15 +1599,23 @@ def main() -> int:
     # an image that stays in L2: bytes matter less, barriers more
     l2 = check_wave_kernel(3, L2_M, L2_S, L2_W, timed=True)
     print("wave kernel, L2-resident image:", json.dumps(l2), flush=True)
-    hz = check_hazard_kernel(unsorted_row=False, timed=True)
+    hz = check_hazard_kernel(4, K2_K, K2_S, K2_D, unsorted_row=False)
     print("hazard kernel:", json.dumps(hz), flush=True)
-    hz_unsorted = check_hazard_kernel(unsorted_row=True, timed=False)
+    hz_big = check_hazard_kernel(11, 1, K2_BIG, K2_BIG, unsorted_row=False,
+                                 plain_reps=0)
+    print("hazard kernel, fused_raw_loops' shape:", json.dumps(hz_big),
+          flush=True)
+    hz_unsorted = check_hazard_kernel(5, K2_K, K2_S, K2_D, unsorted_row=True,
+                                      plain_reps=0)
     print("hazard kernel, one unsorted row:", json.dumps(hz_unsorted),
           flush=True)
     fw = check_forward_kernel()
     print("forwarding kernel:", json.dumps(fw), flush=True)
-    sp = check_spmv_kernel()
+    sp = check_spmv_kernel(*k4_inputs(8), K4_BLOCK_R)
     print("ELL SpMV kernel:", json.dumps(sp), flush=True)
+    sp_mp = check_spmv_kernel(*matpower_csr(), K4_BLOCK_R)
+    print("ELL SpMV kernel, matpower's shape:", json.dumps(sp_mp),
+          flush=True)
     hi = check_histogram_kernel(9, K5_N, K5_BINS)
     print("histogram kernel:", json.dumps(hi), flush=True)
     hi_global = check_histogram_kernel(10, K5G_N, K5G_BINS)
@@ -1664,15 +1748,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/du_hazard/kernel.py:99",
         "launches": k2_launches,
         "tolerance": "bit-exact (torch.equal on int32 frontiers)",
-        "max_abs_err": max(c[side]["max_abs_err"] for c in (hz, hz_unsorted)
+        "max_abs_err": max(c[side]["max_abs_err"]
+                           for c in (hz, hz_big, hz_unsorted)
                            for side in ("right", "left")),
         "ms": hz["right"]["ms"], "plain_ms": hz["right"]["plain_ms"],
         "bound_ms": hz["bound_ms"], "bound_by": "bytes",
-        "compare_bound_ms": hz["compare_bound_ms"],
+        "bound_share": hz["right"]["bound_share"],
         "library_ms": hz["right"]["library_ms"],
         "library": "torch.searchsorted(right=True) on the monotonic rows",
         "side_left": hz["left"],
         "shape": {"K": K2_K, "S": K2_S, "D": K2_D},
+        "fused_raw_loops_shape": hz_big,
+        "unsorted_row": hz_unsorted,
     }
     forward_entry = {
         "name": "fused_stream", "route": "cuda",
@@ -1694,13 +1781,15 @@ def main() -> int:
         "launches": k4_launches,
         "tolerance": "bit-exact (torch.equal) against the plain version; "
                      "cuSPARSE within 2*gamma_(W+3)*|A||x|",
-        "max_abs_err": sp["max_abs_err"],
+        "max_abs_err": max(sp["max_abs_err"], sp_mp["max_abs_err"]),
         "ms": sp["ms"], "plain_ms": sp["plain_ms"],
         "bound_ms": sp["bound_ms"], "bound_by": "bytes",
+        "bound_share": sp["bound_share"],
         "library_ms": sp["library_ms"],
         "library": "torch.mv on a sparse CSR tensor (cuSPARSE)",
         "library_max_abs_err": sp["library_max_abs_err"],
         "shape": {k: sp[k] for k in ("N", "M", "W", "nnz")},
+        "matpower_shape": sp_mp,
     }
     hist_entry = {
         "name": "histogram", "route": "cuda",

@@ -29,3 +29,19 @@ def resolve_device(device, what: str = "repro_torch") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"{what}: unsupported device {dev}")
     return dev
+
+
+def launch(dev: torch.device, fn, *args):
+    """``fn(*args, stream)`` with CUDA device ``dev`` current and
+    ``stream`` the raw handle of its current stream: how a wrapper calls a
+    kernel's C launcher through ctypes. The handle is what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, read without
+    building a ``Stream`` object (the call Triton's launcher makes), and
+    the device is switched only where another one is current; both keep
+    the host's cost of a small launch down. The handle comes from
+    ``torch._C._cuda_getCurrentRawStream``, a private torch API that a
+    torch release may rename."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))

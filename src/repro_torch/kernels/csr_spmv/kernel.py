@@ -3,7 +3,8 @@
 The port of the TPU kernel ``src/repro/kernels/csr_spmv/kernel.py``
 (``_spmv_kernel`` through ``csr_spmv``), written by hand in CUDA C++ for
 ``sm_90a`` (``csrc/csr_spmv.cu``; the design notes and the bound are
-there):
+there), four lanes a row reading 16-byte vectors where ``vector_loads``
+allows and words otherwise:
 
     y[r] = Σ_w vals[r, w] · x[clip(cols[r, w], 0, M-1)]
 
@@ -26,10 +27,9 @@ import functools
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, device
 from repro_torch.kernels.csr_spmv.ref import csr_spmv_ref
 
-ROWS = 128  # rows per block, kRows in csrc/csr_spmv.cu
 _INT32_MAX = 2**31 - 1
 
 
@@ -39,9 +39,21 @@ def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.csr_spmv_launch.argtypes = [p, p, p, p, ll, i, ll, i, p]
     lib.csr_spmv_launch.restype = i
+    lib.csr_spmv_vector_loads.argtypes = [p, p, i, i]
+    lib.csr_spmv_vector_loads.restype = i
     lib.csr_spmv_error_string.argtypes = [i]
     lib.csr_spmv_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def vector_loads(cols, vals, x) -> bool:
+    """Whether a launch on these CUDA tensors (as ``csr_spmv`` passes
+    them: int32 ``cols``, float32 ``vals``) reads ``cols`` and ``vals`` as
+    16-byte vectors, as the built library decides: float32 ``x``, ``W`` a
+    multiple of 4 and both arrays 16-byte aligned (a view that starts
+    inside a vector, such as ``flat[1:]``, is not)."""
+    return bool(_lib().csr_spmv_vector_loads(
+        cols.data_ptr(), vals.data_ptr(), cols.shape[1], x.element_size()))
 
 
 def csr_spmv(cols, vals, x, *, block_r: int = 128):
@@ -75,12 +87,10 @@ def csr_spmv(cols, vals, x, *, block_r: int = 128):
     c = cols.to(torch.int32).contiguous()
     v = vals.to(torch.float32).contiguous()
     xs = x.contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().csr_spmv_launch(
-            c.data_ptr(), v.data_ptr(), xs.data_ptr(), y.data_ptr(), n_pad,
-            w, xs.shape[0], xs.element_size(), stream,
-        )
+    rc = device.launch(
+        dev, _lib().csr_spmv_launch, c.data_ptr(), v.data_ptr(),
+        xs.data_ptr(), y.data_ptr(), n_pad, w, xs.shape[0], xs.element_size(),
+    )
     if rc != 0:
         raise RuntimeError(
             "csr_spmv kernel launch failed: "

@@ -117,18 +117,44 @@ def test_compute_torch_on_card_is_bit_exact_on_exact_ops(cuda):
 
 
 @pytest.mark.parametrize("side", ["right", "left"])
-@pytest.mark.parametrize("k,s,d", [(1, 3, 5), (4, 3000, 2049), (3, 0, 7)])
-def test_hazard_frontier_kernel_matches_plain(cuda, k, s, d, side):
-    """Monotonic rows with equal-address runs and negative addresses, one
-    unsorted row, INT32_MAX among the consumers (counts S, no pads)."""
+@pytest.mark.parametrize("k,s,d,unsorted,offset", [
+    (1, 3, 5, ((0, None),), 0),
+    (4, 3000, 2049, ((3, None),), 0),
+    (3, 0, 7, (), 0),
+    (2, 1, 300, (), 0),
+    (2, 16384, 1000, (), 0),
+    (3, 32768, 2000, ((2, None),), 0),
+    (2, 65536, 1500, (), 1),
+    (5, 70001, 4099, ((1, 4095), (3, None)), 0),
+    (1, 2**20, 3001, (), 0),
+])
+def test_hazard_frontier_kernel_matches_plain(cuda, k, s, d, side, unsorted,
+                                              offset):
+    """Non-decreasing rows with long equal-address runs (addresses in
+    [-500, 500)) and negative addresses, searched; beside them unsorted
+    rows, counted: ``(row, None)`` shuffles a row, ``(row, i)`` puts one
+    descent at i (4095: across a check chunk's end). Consumers below and
+    above every producer, INT32_MAX (counts S under either side, no pads)
+    and INT32_MIN (counts 0); S = 0, S = 1, S = 16384 and 32768 (the last
+    4 and 8 words of a search read as 16-byte vectors), src ``offset``
+    words into a flat buffer (not 16-byte aligned: single-word probes), S
+    above the samples a row keeps (70001: a window searched in global
+    memory), S = 2**20 at K = 1, D not a multiple of a tile's lanes."""
     rng = np.random.default_rng(k * 10 + s)
     src = np.sort(rng.integers(-500, 500, (k, s)), axis=1).astype(np.int32)
     if s:
         src[:, 1::2] = src[:, 0::2][:, : src[:, 1::2].shape[1]]
-        rng.shuffle(src[-1])
+    for row, at in unsorted:
+        if at is None:
+            rng.shuffle(src[row])
+        else:
+            src[row, at + 1] = src[row, at] - 1
     dst = rng.integers(-520, 520, (k, d)).astype(np.int32)
     dst[:, 0] = 2**31 - 1
-    src_d = torch.from_numpy(src).to(cuda)
+    dst[:, 1] = -2**31
+    flat = np.concatenate([np.zeros(offset, np.int32), src.ravel()])
+    src_d = torch.from_numpy(flat).to(cuda)[offset:].view(k, s)
+    assert (src_d.data_ptr() % 16 == 0) == (offset == 0)
     dst_d = torch.from_numpy(dst).to(cuda)
     before = k2.hazard_frontier_batch.launches
     got = k2.hazard_frontier_batch(src_d, dst_d, side=side)
@@ -136,8 +162,88 @@ def test_hazard_frontier_kernel_matches_plain(cuda, k, s, d, side):
     torch.cuda.synchronize()
     assert k2.hazard_frontier_batch.launches == before + 1
     assert torch.equal(got, want)
-    if side == "right":
-        assert got[:, 0].tolist() == [s] * k
+    assert got[:, 0].tolist() == [s] * k
+    assert got[:, 1].tolist() == [0] * k
+    if s > 1 and not unsorted:  # searched rows: the search's answer
+        lib = torch.searchsorted(src_d, dst_d, right=side == "right",
+                                 out_int32=True)
+        assert torch.equal(got, lib)
+
+
+@pytest.mark.parametrize("k,s,words", [
+    (1, 0, 4), (3, 1, 4 + 3 * 4), (1, 4096, 4 + 4096), (1, 4097, 8 + 2052),
+    (2, 70001, 140 + 2 * 2188), (1, 2**20, 1024 + 4096),
+])
+def test_hazard_frontier_scratch_words(cuda, k, s, words):
+    """The kernel's scratch, as the built library sizes it: one descent
+    flag per 1024 src words of a row (one for S = 0), then each row's
+    samples, every stride-th src word (stride a power of two, never more
+    than 4096 samples), each part padded to 4 words so the samples are
+    read as 16-byte vectors. The launcher refuses a buffer 4 words
+    short."""
+    assert k2.scratch_words(k, s) == words
+    src = torch.zeros((k, s), dtype=torch.int32, device=cuda)
+    dst = torch.zeros((k, 3), dtype=torch.int32, device=cuda)
+    buf = torch.empty(k * 3 + 4 + words, dtype=torch.int32, device=cuda)
+    at = buf.data_ptr() + 4 * ((k * 3 + 3) & ~3)
+    launch = k2._lib().hazard_frontier_launch
+    args = (src.data_ptr(), dst.data_ptr(), buf.data_ptr(), at)
+    tail = (k, s, 3, 0, k2._max_grid(cuda.index),
+            torch.cuda.current_stream(cuda).cuda_stream)
+    assert launch(*args, words - 4, *tail) != 0
+    assert launch(*args, words, *tail) == 0
+    torch.cuda.synchronize()
+
+
+_FUZZ_S = (1, 2, 3, 4, 5, 7, 8, 1023, 1024, 1025, 4095, 4096, 4097, 8192,
+           8193, 12288, 16383, 16384, 16385, 32769, 65536, 65537, 131075,
+           262144)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_hazard_frontier_kernel_random_cases(cuda, seed):
+    """Twenty seeded random batches a seed, both sides, bit for bit: K in
+    [1, 6], S around the check chunk, the sample count and the vector
+    widths, addresses in a narrow range or across all of int32, rows
+    sorted, shuffled or with one descent, dst drawn from src or around
+    it, unaligned views and int64 inputs now and then."""
+    rng = np.random.default_rng(123 + seed)
+    lo32, hi32 = -2**31, 2**31 - 1
+    for _ in range(20):
+        k, s = int(rng.integers(1, 7)), int(rng.choice(_FUZZ_S))
+        d = int(rng.integers(1, 5000))
+        if rng.random() < 0.3:
+            lo, hi = sorted(int(v) for v in rng.integers(lo32, hi32, 2))
+        else:
+            lo, hi = -int(rng.integers(1, 50)), int(rng.integers(1, 50))
+        src = np.sort(rng.integers(lo, hi + 1, (k, s)), axis=1)
+        for r in range(k):
+            u = rng.random()
+            if u < 0.2:
+                rng.shuffle(src[r])
+            elif u < 0.3 and s > 1:  # one descent (a swap where lo32 stops it)
+                i = int(rng.integers(0, s - 1))
+                if src[r, i] > lo32:
+                    src[r, i + 1] = src[r, i] - 1
+                elif s > 2:
+                    src[r, 0], src[r, -1] = src[r, -1], src[r, 0]
+        src = src.clip(lo32, hi32).astype(np.int32)
+        dst = rng.integers(max(lo - 5, lo32), min(hi + 5, hi32), (k, d))
+        dst = dst.clip(lo32, hi32).astype(np.int32)
+        on = rng.random((k, d)) < 0.4
+        dst[on] = np.take_along_axis(src, rng.integers(0, s, (k, d)), 1)[on]
+        dst[:, 0] = hi32
+        dst[:, 1:2] = lo32
+        off = int(rng.integers(0, 4)) if rng.random() < 0.3 else 0
+        flat = np.concatenate([np.zeros(off, np.int32), src.ravel()])
+        src_d = torch.from_numpy(flat).to(cuda)[off:].view(k, s)
+        dst_d = torch.from_numpy(dst).to(cuda)
+        if rng.random() < 0.2:
+            src_d, dst_d = src_d.long(), dst_d.long()
+        for side in ("right", "left"):
+            got = k2.hazard_frontier_batch(src_d, dst_d, side=side)
+            want = hazard_frontier_batch_ref(src_d, dst_d, side=side)
+            assert torch.equal(got, want), (k, s, d, off, side)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -207,18 +313,31 @@ def test_frontier_crosschecks_on_card(cuda, name):
     assert k3.fused_stream.launches - n3 == forwards
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n_pad,w,m", [(8, 1, 5), (1000, 16, 3001),
-                                       (384, 37, 70)])
-def test_csr_spmv_kernel_matches_plain(cuda, n_pad, w, m, dtype):
-    """Bit for bit: clipped columns (negative and past ``M``), widths
-    below, at and above one staged tile, a ragged last row block."""
+@pytest.mark.parametrize("n_pad,w,m", [
+    (8, 1, 5), (1000, 16, 3001), (384, 37, 70), (200, 3, 50), (256, 4, 900),
+    (136, 5, 77), (264, 17, 500),
+])
+def test_csr_spmv_kernel_matches_plain(cuda, n_pad, w, m, dtype, offset):
+    """Bit for bit: clipped columns (negative and past ``M``), W in
+    {1, 3, 4, 5, 16, 17, 37}, a ragged last row block; the vector loads
+    for float32 x, W a multiple of 4 and aligned arrays, the word loads
+    otherwise: float64 x, other widths, and arrays that are views
+    ``offset`` words into a flat buffer (``flat[1:]`` is not 16-byte
+    aligned)."""
     rng = np.random.default_rng(n_pad + w)
+    size = n_pad * w + offset
     cols = torch.from_numpy(
-        rng.integers(-3, m + 3, (n_pad, w)).astype(np.int32)).to(cuda)
+        rng.integers(-3, m + 3, size).astype(np.int32)
+    ).to(cuda)[offset:].view(n_pad, w)
     vals = torch.from_numpy(
-        rng.standard_normal((n_pad, w)).astype(np.float32)).to(cuda)
+        rng.standard_normal(size).astype(np.float32)
+    ).to(cuda)[offset:].view(n_pad, w)
     x = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+    assert k4.vector_loads(cols, vals, x) == (
+        dtype == torch.float32 and w % 4 == 0 and offset == 0
+    )
     before = k4.csr_spmv.launches
     got = k4.csr_spmv(cols, vals, x, block_r=8)
     want = csr_spmv_ref(cols, vals, x)
@@ -227,6 +346,37 @@ def test_csr_spmv_kernel_matches_plain(cuda, n_pad, w, m, dtype):
     assert got.dtype == dtype and torch.equal(got, want)
     empty = k4.csr_spmv(cols[:0], vals[:0], x)
     assert empty.shape == (0,) and k4.csr_spmv.launches == before + 1
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_csr_spmv_kernel_random_cases(cuda, seed):
+    """Thirty seeded random layouts a seed, bit for bit: N_pad below 3000,
+    W in [1, 39], M below 5000, columns past both ends, views up to 3
+    words into a flat buffer, float32 or float64 x with a NaN or an
+    infinity now and then."""
+    rng = np.random.default_rng(456 + seed)
+    for _ in range(30):
+        n_pad, w = int(rng.integers(1, 3000)), int(rng.integers(1, 40))
+        m = int(rng.integers(1, 5000))
+        off = int(rng.integers(0, 4)) if rng.random() < 0.3 else 0
+        dtype = torch.float32 if rng.random() < 0.7 else torch.float64
+        size = n_pad * w + off
+        cols = torch.from_numpy(
+            rng.integers(-5, m + 5, size).astype(np.int32)
+        ).to(cuda)[off:].view(n_pad, w)
+        vals = torch.from_numpy(
+            rng.standard_normal(size).astype(np.float32)
+        ).to(cuda)[off:].view(n_pad, w)
+        x = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+        if rng.random() < 0.1:
+            x[int(rng.integers(0, m))] = float("nan")
+        if rng.random() < 0.1:
+            x[int(rng.integers(0, m))] = float("inf")
+        got = k4.csr_spmv(cols, vals, x, block_r=1)
+        want = csr_spmv_ref(cols, vals, x)
+        bits = torch.int32 if dtype == torch.float32 else torch.int64
+        assert torch.equal(got.view(bits), want.view(bits)), (n_pad, w, m,
+                                                              off, dtype)
 
 
 @pytest.mark.parametrize("n,bins,block", [

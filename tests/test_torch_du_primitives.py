@@ -147,6 +147,29 @@ def test_hazard_frontier_empty_shapes():
     assert got.shape == (0,) and got.dtype == torch.int32
 
 
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("k,s,d", [(3, 1, 20), (4, 130, 70), (2, 300, 129)])
+def test_hazard_frontier_batch_mixed_rows_match_pallas(k, s, d, side):
+    """One call over sorted rows with long equal-address runs and negative
+    addresses beside shuffled rows; consumers below and above every
+    producer and ``INT32_MIN`` (0 on either side)."""
+    rng = np.random.default_rng(k * 1000 + s)
+    src = np.sort(rng.integers(-60, 60, (k, s)), axis=1)
+    src[:, 1::2] = src[:, 0::2][:, : src[:, 1::2].shape[1]]
+    rng.shuffle(src[k - 1])
+    src = src.astype(np.int32)
+    dst = rng.integers(-70, 70, (k, d)).astype(np.int32)
+    dst[:, 0] = -2**31
+    dst[:, 1:3] = (-61, 60)
+    got = _port_frontier(src, dst, side, batch=True)
+    np.testing.assert_array_equal(
+        got, _pallas_frontier(src, dst, side, batch=True)
+    )
+    assert got[:, 0].tolist() == [0] * k
+    assert got[:, 1].tolist() == [0] * k
+    assert got[:, 2].tolist() == [s] * k
+
+
 def test_hazard_frontier_ref_chunks_like_one_pass(monkeypatch):
     """The plain version's chunking over dst changes nothing."""
     from repro_torch.kernels.du_hazard import ref

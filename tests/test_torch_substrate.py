@@ -144,6 +144,29 @@ def test_csr_spmv_rejects_bad_layouts():
                     block_r=5)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w", [3, 4, 5, 16, 17])
+def test_csr_spmv_views_and_widths_match_pallas(w, offset):
+    """Arrays that are views ``offset`` words into a flat buffer
+    (``flat[1:]``), widths on and off a multiple of 4 and clipped
+    columns: the reference tests' ``atol=1e-4`` against the Pallas
+    kernel."""
+    rng = np.random.default_rng(w * 10 + offset)
+    n_pad, m = 48, 90
+    size = n_pad * w + offset
+    cols = torch.from_numpy(
+        rng.integers(-3, m + 3, size).astype(np.int32))[offset:].view(n_pad, w)
+    vals = torch.from_numpy(
+        rng.standard_normal(size).astype(np.float32))[offset:].view(n_pad, w)
+    x = rng.standard_normal(m).astype(np.float32)
+    got = k4.csr_spmv(cols, vals, torch.from_numpy(x), block_r=16)
+    want = ref_k4.csr_spmv(jnp.asarray(cols.numpy()),
+                           jnp.asarray(vals.numpy()), jnp.asarray(x),
+                           block_r=16, interpret=True)
+    assert got.shape == (n_pad,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # K5: histogram
 # ---------------------------------------------------------------------------
