@@ -35,11 +35,15 @@ failure exits non-zero:
    -1 and 1% past the last bin) beside ``torch.bincount``, and at
    N=2**24 with 2**16 bins on its global-memory path; the flash
    attention kernel (K6) at qwen3-14b's heads (H=40 over Hk=8, D=128),
-   causal at S=4096, and a ragged non-causal case (S=1000) in the
-   reference's layout; the decode attention kernel (K7) at batch 32 over
-   a cache of 8192 positions (frontiers seeded in [1, 8192]; then one
-   row at lengths 0); both within a stated float32 bound of their plain
-   versions, beside ``scaled_dot_product_attention``; the selective-scan
+   causal at S=4096 and at the serve path's prefill (B=4, S=128), and a
+   ragged non-causal case (S=1000) in the reference's layout; the decode
+   attention kernel (K7) at batch 32 over a cache of 8192 positions
+   (frontiers seeded in [1, 8192]; two calls the same bits; then one row
+   at lengths 0) and at the serve path's shape (B=4 over 161 positions,
+   every frontier 1-160); both within a stated float32 bound of their
+   plain versions, at both shapes the whole call timed as K2's (median
+   of 7 runs of 20, the card's time alone, the host's per call) beside
+   ``scaled_dot_product_attention`` and the bound; the selective-scan
    kernel (K8) at falcon-mamba-7b's widths (B=4, S=4096, di=8192, n=16),
    a ragged case (S=1000, di=8096), a continuation from a nonzero h0 and
    the serve path's prefill shape (B=4, S=128), y and the final state
@@ -181,11 +185,14 @@ K6_B, K6_H, K6_HK, K6_S, K6_D = 1, 40, 8, 4096, 128
 K6R_BH, K6R_S = 40, 1000  # the ragged non-causal case, reference layout
 K7_B, K7_H, K7_HK, K7_C, K7_D = 32, 40, 8, 8192, 128
 # kernel against plain version, float32: the sums run in another order
-# (tiles of 64 keys, fmaf) over at most a few thousand terms of size ~1,
-# so the outputs (convex combinations of N(0, 1) values) differ by ~1e-6;
-# 1e-4 is the reference's own bound for Pallas against its oracle
+# (tiles of 32 keys, K7's splits merged, K6's products in 3xTF32, each
+# term within ~2**-21 of its float32 product) over at most a few thousand
+# terms of size ~1, so the outputs (convex combinations of N(0, 1)
+# values) differ by ~1e-6; 1e-4 is the reference's own bound for Pallas
+# against its oracle
 ATTN_ATOL = 1e-4
 FP32_LANES_PER_SM = 128  # Hopper: FP32 FMA lanes per SM
+TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense TF32 tensor cores
 # the serve path: qwen3-14b at full width and depth in float32, as
 # serve.main computes max_seq
 SERVE_ARCH, SERVE_B, SERVE_P, SERVE_NEW = "qwen3-14b", 4, 128, 32
@@ -362,6 +369,15 @@ def _enqueue_us(fn, reps: int) -> float:
     return took / reps * 1e6
 
 
+def _call_times(fn, bound_ms) -> dict:
+    """A wrapper call timed three ways (``_time_ms``, median of TRIALS
+    runs of REPS; ``_device_ms``; ``_enqueue_us``) beside its bound."""
+    ms = _time_ms(fn, REPS, TRIALS)
+    return {"ms": ms, "device_ms": _device_ms(fn, REPS),
+            "host_us": _enqueue_us(fn, REPS), "bound_ms": bound_ms,
+            "bound_share": bound_ms / ms}
+
+
 def k2_inputs(seed, k, s, d, *, unsorted_row):
     """``(k, s)`` src rows, non-decreasing with equal-address runs and
     negative addresses (the last row shuffled when ``unsorted_row``),
@@ -410,10 +426,7 @@ def check_hazard_kernel(seed, k, s, d, *, unsorted_row, plain_reps=REPS):
         err = float((got - want).abs().max().item())
         del want
         run = lambda: kernel.hazard_frontier_batch(src, dst, side=side)
-        row = {"max_abs_err": err, "ms": _time_ms(run, REPS, TRIALS),
-               "device_ms": _device_ms(run, REPS),
-               "host_us": _enqueue_us(run, REPS)}
-        row["bound_share"] = bound_ms / row["ms"]
+        row = {"max_abs_err": err, **_call_times(run, bound_ms)}
         if plain_reps:
             row["plain_ms"] = _time_ms(
                 lambda: hazard_frontier_batch_ref(src, dst, side=side),
@@ -567,7 +580,6 @@ def check_spmv_kernel(rp, ci, vv, x, block_r):
         library_ms = _time_ms(lambda: torch.mv(lib_a, xd), REPS, TRIALS)
         library_device_ms = _device_ms(lambda: torch.mv(lib_a, xd), REPS)
     run = lambda: kernel.csr_spmv(c, v, xd, block_r=block_r)
-    ms = _time_ms(run, REPS, TRIALS)
     # the ELL arrays read once, y written once, x read once (it stays in
     # L2 for the gathers)
     bound_ms = (cols.size * 8 + (c.shape[0] + m) * x.itemsize
@@ -578,11 +590,9 @@ def check_spmv_kernel(rp, ci, vv, x, block_r):
         "max_abs_err": float((got - want).abs().max().item()),
         "library_max_abs_err": float(lib_err.max()),
         "library_max_err_over_bound": float((lib_err / slack).max()),
-        "ms": ms, "device_ms": _device_ms(run, REPS),
-        "host_us": _enqueue_us(run, REPS),
+        **_call_times(run, bound_ms),
         "plain_ms": _time_ms(lambda: csr_spmv_ref(c, v, xd), REPS),
         "library_ms": library_ms, "library_device_ms": library_device_ms,
-        "bound_ms": bound_ms, "bound_share": bound_ms / ms,
     }
 
 
@@ -644,16 +654,31 @@ def _within(got, want, what, atol=ATTN_ATOL) -> float:
     return err
 
 
+def _flash_bounds(b, s, h, hk, d) -> dict:
+    """K6's bounds, causal: the operations at the accuracy kept (3xTF32:
+    three TF32 products a multiply-add, at 495 TFLOP/s), beside the
+    float32 CUDA cores' (the earlier design's) and the bytes (q, k, v read
+    once, o written once)."""
+    pairs = s * (s + 1) // 2  # causal (query, key) pairs
+    flops = 4 * b * h * d * pairs
+    nbytes = 4 * b * s * d * (2 * h + 2 * hk)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"gflop": flops / 1e9, "bytes_ms": bytes_ms,
+            "bound_ms": max(3 * flops / TF32_FLOPS_PER_S * 1e3, bytes_ms),
+            "f32_cuda_core_bound_ms": max(flops / _f32_flops_per_s() * 1e3,
+                                          bytes_ms)}
+
+
 def check_flash_kernel():
     """K6 against its plain versions on the card: at qwen3-14b's heads
     (H=40 over Hk=8, D=128) causal in the model's layout, against
     ``flash_mha``'s blocked loop, at S=4096 and at the serve path's
     prefill (B=SERVE_B, S=SERVE_P); a ragged non-causal case
     (S=S_kv=1000, no tile divides it) in the reference's layout, against
-    the full-score oracle. Within ``ATTN_ATOL`` each; timed (at S=4096)
-    beside
+    the full-score oracle. Within ``ATTN_ATOL`` each. At both causal
+    shapes the whole call (``_call_times``), beside
     ``scaled_dot_product_attention`` (a yardstick the port never calls)
-    and the operations bound."""
+    and the operations bound of 3xTF32."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel
     from repro_torch.kernels.attention.ref import (flash_attention_ref,
@@ -678,29 +703,41 @@ def check_flash_kernel():
     err_r = _within(got_r, flash_attention_ref(qr, kr, vr, causal=False,
                                                sm_scale=scale),
                     "K6 ragged non-causal")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib, lib_s = sdpa(q, k, v), sdpa(qs, ks, vs)
     lib_err = float((lib().transpose(1, 2) - got).abs().max().item())
-    pairs = K6_S * (K6_S + 1) // 2  # causal (query, key) pairs
-    flops = 4 * K6_B * K6_H * K6_D * pairs
-    nbytes = 4 * K6_B * K6_S * K6_D * (2 * K6_H + 2 * K6_HK)
+    bounds = _flash_bounds(K6_B, K6_S, K6_H, K6_HK, K6_D)
+    bounds_s = _flash_bounds(SERVE_B, SERVE_P, K6_H, K6_HK, K6_D)
+    serve = {"B": SERVE_B, "S": SERVE_P, "max_abs_err": err_s, **bounds_s,
+             **_call_times(lambda: kernel.flash_attention_gqa(qs, ks, vs),
+                           bounds_s["bound_ms"]),
+             "library_ms": _time_ms(lib_s, REPS, TRIALS),
+             "library_device_ms": _device_ms(lib_s, REPS)}
     return {
         "B": K6_B, "H": K6_H, "Hk": K6_HK, "S": K6_S, "D": K6_D,
-        "causal": True, "dtype": "float32",
+        "causal": True, "dtype": "float32", "products": "3xTF32",
         "max_abs_err": max(err, err_s, err_r), "causal_max_abs_err": err,
-        "serve_shape": {"B": SERVE_B, "S": SERVE_P, "max_abs_err": err_s},
+        "serve_shape": serve,
         "ragged_noncausal": {"BH": K6R_BH, "S": K6R_S, "S_kv": K6R_S,
                              "D": K6_D, "max_abs_err": err_r},
-        "library_max_abs_err": lib_err,
-        "ms": _time_ms(lambda: kernel.flash_attention_gqa(q, k, v), REPS),
+        "library_max_abs_err": lib_err, **bounds,
+        **_call_times(lambda: kernel.flash_attention_gqa(q, k, v),
+                      bounds["bound_ms"]),
         "plain_ms": _time_ms(lambda: flash_gqa_ref(q, k, v), 3),
         "library_ms": _time_ms(lib, REPS),
-        "gflop": flops / 1e9,
-        "bound_ms": max(flops / _f32_flops_per_s(),
-                        nbytes / HBM_BYTES_PER_S) * 1e3,
-        "tf32_bound_ms": flops / 495e12 * 1e3,
+        "library_device_ms": _device_ms(lib, REPS),
     }
+
+
+def _decode_bound_bytes_ms(b, h, hk, d, committed) -> float:
+    """K7's bytes bound: the committed K and V rows read once, q read and
+    the output written once (float32)."""
+    return 4 * (committed * hk * d * 2 + 2 * b * h * d) / HBM_BYTES_PER_S * 1e3
 
 
 def check_decode_kernel():
@@ -709,8 +746,10 @@ def check_decode_kernel():
     with 1 and C among them; then one row with nothing committed
     (lengths 0: the uniform average of the whole cache); then at the
     serve path's shape (B=SERVE_B over SERVE_MAX_SEQ positions, which no
-    64-key tile divides) at every frontier the path reaches, 1 to
-    SERVE_P + SERVE_NEW. Within ``ATTN_ATOL``; timed (at C=8192) beside ``scaled_dot_product_attention`` with a
+    tile divides) at every frontier the path reaches, 1 to
+    SERVE_P + SERVE_NEW. Within ``ATTN_ATOL``; two calls the same bits.
+    At C=8192 and at the serve shape's last frontier the whole call
+    (``_call_times``), beside ``scaled_dot_product_attention`` with a
     boolean frontier mask and the bytes bound of the committed rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel
@@ -729,6 +768,8 @@ def check_decode_kernel():
     torch.cuda.synchronize()
     err = _within(got, decode_gqa_ref(q, kc, vc, lengths, sm_scale=scale),
                   "K7")
+    if not torch.equal(got, run(lengths)):
+        raise AssertionError("K7: two calls on the same inputs differ")
     empty = lengths.clone()
     empty[2] = 0
     got_0 = run(empty)
@@ -741,34 +782,49 @@ def check_decode_kernel():
     qs = _randn(g, SERVE_B, K7_H, K7_D)
     ks, vs = (_randn(g, SERVE_B, SERVE_MAX_SEQ, K7_HK, K7_D) for _ in "kv")
     err_s = 0.0
-    for t in range(1, SERVE_P + SERVE_NEW + 1):
+    last = SERVE_P + SERVE_NEW
+    for t in range(1, last + 1):
         lens = torch.full((SERVE_B,), t, dtype=torch.int32, device="cuda")
         got_s = kernel.decode_attention_gqa(qs, ks, vs, lens, sm_scale=scale)
         err_s = max(err_s, _within(
             got_s, decode_gqa_ref(qs, ks, vs, lens, sm_scale=scale),
             f"K7 at the serve path's shape, frontier {t}"))
-    mask = (torch.arange(K7_C, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+
+    def sdpa(q, kc, vc, lens):
+        mask = (torch.arange(kc.shape[1], device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+
+    lib = sdpa(q, kc, vc, lengths)
+    lib_s = sdpa(qs, ks, vs, lens)
     lib_err = float((lib()[:, :, 0] - got).abs().max().item())
     committed = int(lengths.clamp(max=K7_C).sum().item())
-    nbytes = 4 * (committed * K7_HK * K7_D * 2 + 2 * K7_B * K7_H * K7_D)
+    bound_ms = _decode_bound_bytes_ms(K7_B, K7_H, K7_HK, K7_D, committed)
+    bound_s = _decode_bound_bytes_ms(SERVE_B, K7_H, K7_HK, K7_D,
+                                     SERVE_B * last)
+    serve = {"B": SERVE_B, "C": SERVE_MAX_SEQ, "frontiers": [1, last],
+             "timed_frontier": last, "max_abs_err": err_s,
+             "n_split_and_len": kernel.decode_splits(SERVE_B, SERVE_MAX_SEQ,
+                                                     K7_HK),
+             **_call_times(lambda: kernel.decode_attention_gqa(
+                 qs, ks, vs, lens, sm_scale=scale), bound_s),
+             "library_ms": _time_ms(lib_s, REPS, TRIALS),
+             "library_device_ms": _device_ms(lib_s, REPS)}
     return {
         "B": K7_B, "H": K7_H, "Hk": K7_HK, "C": K7_C, "D": K7_D,
         "dtype": "float32", "committed_rows": committed,
         "lengths_min_max": [int(lengths.min()), int(lengths.max())],
+        "n_split_and_len": kernel.decode_splits(K7_B, K7_C, K7_HK),
         "max_abs_err": max(err, err_0, err_s), "lengths0_max_abs_err": err_0,
-        "serve_shape": {"B": SERVE_B, "C": SERVE_MAX_SEQ,
-                        "frontiers": [1, SERVE_P + SERVE_NEW],
-                        "max_abs_err": err_s},
+        "serve_shape": serve,
         "library_max_abs_err": lib_err,
-        "ms": _time_ms(lambda: run(lengths), REPS),
+        **_call_times(lambda: run(lengths), bound_ms),
         "plain_ms": _time_ms(
             lambda: decode_gqa_ref(q, kc, vc, lengths, sm_scale=scale), 5),
         "library_ms": _time_ms(lib, REPS),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "library_device_ms": _device_ms(lib, REPS),
     }
 
 
@@ -955,7 +1011,8 @@ def profile_decode(step, params, cfg, tok, n_steps=4):
     Returns the device's busy share (the traced kernel time over the
     profiler-free wall time of the same steps; None where the profiler
     reports no device time), the kernel launches per step and per
-    layer, and the kernels that take the most device time."""
+    layer, K7's device ms per step, and the kernels that take the most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import layers as L, transformer as T
@@ -984,10 +1041,12 @@ def profile_decode(step, params, cfg, tok, n_steps=4):
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
+    k7_us = sum(r[1] for r in rows if "decode_kernel" in r[0])
     return {
         "steps": n_steps, "wall_ms_per_step": wall / n_steps * 1e3,
         "traced_wall_ms_per_step": wall_traced / n_steps * 1e3,
         "kernel_ms_per_step": busy_us / n_steps / 1e3,
+        "k7_ms_per_step": k7_us / n_steps / 1e3,
         "device_busy_share": busy_us * 1e-6 / wall if busy_us else None,
         "kernels_per_step": launches / n_steps,
         "kernels_per_layer_step": launches / n_steps / cfg.n_layers,
@@ -1814,11 +1873,16 @@ def main() -> int:
                               "MoE prefill": moe["launches"]["prefill"]["k6"],
                               "MoE check": moe["launches"]["moe_check"]["k6"]},
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
-                     "version (float32; the sum order differs)",
+                     "version (float32 inputs, products in 3xTF32 on the "
+                     "tensor cores; the sum order differs)",
         "max_abs_err": fl["max_abs_err"],
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+        "device_ms": fl["device_ms"], "host_us": fl["host_us"],
         "bound_ms": fl["bound_ms"], "bound_by": "operations",
-        "tf32_bound_ms": fl["tf32_bound_ms"],
+        "bound_share": fl["bound_share"],
+        "bound_basis": "3xTF32: 3 TF32 tensor-core products a multiply-add "
+                       "at 495 TFLOP/s",
+        "f32_cuda_core_bound_ms": fl["f32_cuda_core_bound_ms"],
         "library_ms": fl["library_ms"],
         "library": "scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True)",
@@ -1839,7 +1903,10 @@ def main() -> int:
                      "version (float32; the sum order differs)",
         "max_abs_err": de["max_abs_err"],
         "ms": de["ms"], "plain_ms": de["plain_ms"],
+        "device_ms": de["device_ms"], "host_us": de["host_us"],
         "bound_ms": de["bound_ms"], "bound_by": "bytes",
+        "bound_share": de["bound_share"],
+        "n_split_and_len": de["n_split_and_len"],
         "library_ms": de["library_ms"],
         "library": "scaled_dot_product_attention with a boolean frontier "
                    "mask, enable_gqa=True",

@@ -42,6 +42,12 @@ def launch(dev: torch.device, fn, *args):
     ``torch._C._cuda_getCurrentRawStream``, a private torch API that a
     torch release may rename."""
     if dev.index == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        return fn(*args, raw_stream(dev))
     with torch.cuda.device(dev):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        return fn(*args, raw_stream(dev))
+
+
+def raw_stream(dev: torch.device) -> int:
+    """The raw handle of CUDA device ``dev``'s current stream, the one
+    ``launch`` passes (``torch._C._cuda_getCurrentRawStream``)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)

@@ -19,12 +19,28 @@ asserts it). ``block_q`` and ``block_k`` are kept for the reference's
 signature and change nothing: the CUDA kernel's tiles are fixed, and the
 plain versions compute the full scores.
 
-On a CUDA tensor each entry launches its kernel, built from source at
-first use (``repro_torch._build``), and raises on any build or launch
-failure. Only tensors on the CPU, which the tests pass, go to the plain
-versions in ``ref.py``. ``flash_attention.launches`` and
+On a CUDA tensor each entry launches its kernel on the current stream
+(``repro_torch.device.launch``), built from source at first use
+(``repro_torch._build``), and raises on any build or launch failure.
+Only tensors on the CPU, which the tests pass, go to the plain versions
+in ``ref.py``. ``flash_attention.launches`` and
 ``decode_attention.launches`` count the launches of K6 and K7 through
-either entry.
+either entry, one a call.
+
+K7 splits the cache positions over blocks (``decode_splits``) and merges
+the splits' partials inside the same launch. Its scratch:
+
+- the partials, allocated with ``torch.empty`` for each call:
+  ``4 * B * Hk * n_split * (H // Hk) * (D + 2)`` bytes
+  (``decode_scratch_floats``), 21.3 MB at B=32, H=40, Hk=8, C=8192,
+  D=128 (32 splits) and 0.50 MB at B=4, C=161 (6 splits);
+- the tickets, ``4 * B * Hk`` bytes of int32 zeros that the last block of
+  each kv head counts up to and sets back to 0, kept per (device, stream)
+  and grown as needed. Calls on one stream run in order, so each finds
+  its tickets at 0. Calls on two streams at once use two sets and do not
+  meet; one stream's tickets must not be shared with a call running on
+  another (a call cut short by a fault would leave them non-zero, but
+  such a fault ends the CUDA context anyway).
 """
 
 from __future__ import annotations
@@ -34,7 +50,7 @@ import functools
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, device
 from repro_torch.kernels.attention.ref import (
     decode_attention_ref,
     decode_gqa_ref,
@@ -54,9 +70,13 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
                                            i, f, p]
     lib.flash_attention_launch.restype = i
-    lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
-                                            f, p]
+    lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
+                                            i, i, f, p]
     lib.decode_attention_launch.restype = i
+    lib.decode_attention_splits.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.decode_attention_splits.restype = i
+    lib.decode_attention_scratch_floats.argtypes = [i, i, i, i, i]
+    lib.decode_attention_scratch_floats.restype = ctypes.c_longlong
     lib.attention_error_string.argtypes = [i]
     lib.attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -113,13 +133,11 @@ def _launch_flash(q, k, v, causal, sm_scale):
     if s_kv == 0:
         raise ValueError(f"{what}: no keys to attend to")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib().flash_attention_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, s, s_kv, h, hk, d, int(bool(causal)),
-            float(sm_scale), stream,
-        )
+    rc = device.launch(
+        q.device, _lib().flash_attention_launch, _DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s_kv,
+        h, hk, d, int(bool(causal)), float(sm_scale),
+    )
     _raise_on(rc, what)
     flash_attention.launches += 1
     return out
@@ -139,19 +157,53 @@ def _launch_decode(q, k_cache, v_cache, lengths, sm_scale):
         return out
     if cap == 0:
         raise ValueError(f"{what}: the cache has no entries")
-    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    dev = q.device
+    lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib().decode_attention_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(), b, cap, h,
-            hk, d, float(sm_scale), stream,
-        )
+    part = torch.empty(decode_scratch_floats(b, cap, h, hk, d),
+                       dtype=torch.float32, device=dev)
+    tickets = _tickets(dev, b * hk)
+    rc = device.launch(
+        dev, _lib().decode_attention_launch, _DTYPES[q.dtype], q.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), part.data_ptr(), tickets.data_ptr(), b, cap, h, hk,
+        d, float(sm_scale),
+    )
     _raise_on(rc, what)
     decode_attention.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_splits(b: int, cap: int, hk: int) -> tuple[int, int]:
+    """``(n_split, split_len)``: the blocks K7 splits ``cap`` cache
+    positions over, per (b, kv head), and the positions each covers, as
+    the built library chooses them from ``b * hk`` and ``cap`` alone."""
+    length = ctypes.c_int(0)
+    n = _lib().decode_attention_splits(b, cap, hk, ctypes.byref(length))
+    return n, length.value
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_scratch_floats(b: int, cap: int, h: int, hk: int, d: int) -> int:
+    """float32 words of partials a K7 call needs (asked of the built
+    library, once per shape)."""
+    return _lib().decode_attention_scratch_floats(b, cap, h, hk, d)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket words at 0 for K7 on ``dev``'s current
+    stream (each call leaves them at 0 again)."""
+    key = (dev.index, device.raw_stream(dev))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 def _check_blocks(*blocks):

@@ -444,8 +444,9 @@ def test_speculative_and_streaming_programs_on_card(cuda, name, scale, kw):
 # attention: float32 against the plain versions within 1e-4 (the sum
 # order differs; the reference's own bound for Pallas against its
 # oracle); bfloat16 inputs within 2e-2, about two bfloat16 steps of
-# outputs below 2 in size, since both round one float32 result
-ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# outputs below 2 in size, since both round one float32 result; float16
+# within 2e-3, two float16 steps there for the same reason
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 
 
 def _randn(seed, *shape, device, dtype=torch.float32):
@@ -522,6 +523,151 @@ def test_decode_attention_gqa_kernel_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert attn.decode_attention.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+def _decode_case(cuda, seed, b, h, hk, c, d, lengths, dtype=torch.float32):
+    q = _randn(seed, b, h, d, device=cuda, dtype=dtype)
+    kc = _randn(seed + 1, b, c, hk, d, device=cuda, dtype=dtype)
+    vc = _randn(seed + 2, b, c, hk, d, device=cuda, dtype=dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, kc, vc, lens
+
+
+def _check_decode(cuda, q, kc, vc, lens, dtype=torch.float32):
+    scale = q.shape[-1] ** -0.5
+    before = attn.decode_attention.launches
+    got = attn.decode_attention_gqa(q, kc, vc, lens, sm_scale=scale)
+    want = decode_gqa_ref(q, kc, vc, lens, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert attn.decode_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+    return got
+
+
+@pytest.mark.parametrize("edge", [1, 2, 5, 9])
+def test_decode_split_edges(cuda, edge):
+    """Frontiers one before, at and one past the end of split ``edge``,
+    over C=300 positions (no tile divides it), 8 query heads on 2."""
+    b, h, hk, c, d = 4, 8, 2, 300, 64
+    n_split, length = attn.decode_splits(b, c, hk)
+    assert n_split > edge and length % 32 == 0
+    e = edge * length
+    q, kc, vc, lens = _decode_case(cuda, 20 + edge, b, h, hk, c, d,
+                                   [e - 1, e, e + 1, c])
+    _check_decode(cuda, q, kc, vc, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_decode_lengths_zero_one_full_and_past(cuda, dtype):
+    """lengths 0, 1, C and past C in one batch, in each input type; the
+    row at 0 is the uniform average of its cache."""
+    b, h, hk, c, d = 4, 40, 8, 161, 128
+    q, kc, vc, lens = _decode_case(cuda, 30, b, h, hk, c, d, [0, 1, c, c + 7],
+                                   dtype)
+    got = _check_decode(cuda, q, kc, vc, lens, dtype)
+    mean = vc[0].float().mean(dim=0).repeat_interleave(h // hk, dim=0)
+    assert (got[0].float() - mean).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("b,h,hk,c,d,lengths", [
+    (1, 4, 1, 8192, 128, [5000]),           # B*Hk = 1: the most splits
+    (1, 4, 1, 8192, 128, [0]),
+    (32, 40, 8, 1000, 128, None),           # B*Hk = 256
+    (3, 6, 3, 37, 32, [37, 0, 20]),         # one split, C < a tile
+    (2, 9, 3, 777, 70, [700, 777]),         # d % 4 != 0: word copies
+    (2, 4, 2, 100, 4, [99, 3]),             # 16-byte rows of float32
+])
+def test_decode_split_shapes(cuda, b, h, hk, c, d, lengths):
+    if lengths is None:
+        g = np.random.default_rng(3)
+        lengths = g.integers(1, c + 1, b).tolist()
+        lengths[:3] = [1, c, 0]
+    q, kc, vc, lens = _decode_case(cuda, 40, b, h, hk, c, d, lengths)
+    _check_decode(cuda, q, kc, vc, lens)
+
+
+@pytest.mark.parametrize("d", [3, 4, 8, 128])
+def test_decode_float16_copy_widths(cuda, d):
+    """float16 rows of 6, 8, 16 and 256 bytes: element, 4-byte and
+    16-byte copies into shared memory."""
+    q, kc, vc, lens = _decode_case(cuda, 50, 2, 4, 2, 90, d, [90, 45],
+                                   torch.float16)
+    _check_decode(cuda, q, kc, vc, lens, torch.float16)
+
+
+def test_decode_split_counts(cuda):
+    """The splits K7 takes: more than one at decode_32k's shape and at
+    the serve path's, of at least 32 keys each."""
+    assert attn.decode_splits(32, 8192, 8) == (32, 256)
+    assert attn.decode_splits(4, 161, 8) == (6, 32)
+    assert attn.decode_splits(1, 8192, 1) == (256, 32)
+
+
+def test_decode_is_deterministic_and_rearms_its_tickets(cuda):
+    """Two calls give the same bits; then a run of calls on one stream
+    with changing frontiers, each against the plain version, shows that
+    every call finds its tickets at 0."""
+    b, h, hk, c, d = 4, 40, 8, 8192, 128
+    g = np.random.default_rng(5)
+    q, kc, vc, lens = _decode_case(cuda, 60, b, h, hk, c, d,
+                                   g.integers(1, c + 1, b).tolist())
+    scale = d ** -0.5
+    first = attn.decode_attention_gqa(q, kc, vc, lens, sm_scale=scale)
+    second = attn.decode_attention_gqa(q, kc, vc, lens, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for step in range(12):
+        lens = torch.tensor(g.integers(-2, c + 40, b), dtype=torch.int32,
+                            device=cuda)
+        _check_decode(cuda, q, kc, vc, lens)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = attn.decode_attention_gqa(q, kc, vc, lens, sm_scale=scale)
+    torch.cuda.synchronize()
+    want = decode_gqa_ref(q, kc, vc, lens, sm_scale=scale)
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("s,s_kv", [(100, 200), (200, 100), (1, 77)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_head_dims_and_ragged_lengths(cuda, d, s, s_kv, causal):
+    q = _randn(70, 1, s, 4, d, device=cuda)
+    k = _randn(71, 1, s_kv, 2, d, device=cuda)
+    v = _randn(72, 1, s_kv, 2, d, device=cuda)
+    before = attn.flash_attention.launches
+    got = attn.flash_attention_gqa(q, k, v, causal=causal)
+    want = flash_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 1
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("d", [70, 256])
+def test_flash_half_types(cuda, dtype, d):
+    q = _randn(73, 2, 150, 4, d, device=cuda, dtype=dtype)
+    k = _randn(74, 2, 150, 1, d, device=cuda, dtype=dtype)
+    v = _randn(75, 2, 150, 1, d, device=cuda, dtype=dtype)
+    got = attn.flash_attention_gqa(q, k, v, causal=True)
+    want = flash_gqa_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+def test_flash_qwen3_heads_many_tiles(cuda):
+    """qwen3-14b's heads (40 over 8, D=128) causal at S=2048: the
+    3xTF32 error accumulates over 64 tiles of keys."""
+    q = _randn(76, 1, 2048, 40, 128, device=cuda)
+    k = _randn(77, 1, 2048, 8, 128, device=cuda)
+    v = _randn(78, 1, 2048, 8, 128, device=cuda)
+    got = attn.flash_attention_gqa(q, k, v, causal=True)
+    want = flash_gqa_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
 
 
 def test_reduced_qwen3_on_card_matches_the_cpu(cuda):
