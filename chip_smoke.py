@@ -806,8 +806,8 @@ def check_decode_kernel():
                                      SERVE_B * last)
     serve = {"B": SERVE_B, "C": SERVE_MAX_SEQ, "frontiers": [1, last],
              "timed_frontier": last, "max_abs_err": err_s,
-             "n_split_and_len": kernel.decode_splits(SERVE_B, SERVE_MAX_SEQ,
-                                                     K7_HK),
+             "n_split_and_len": kernel.decode_splits(
+                 SERVE_B, SERVE_MAX_SEQ, K7_HK, kernel.sm_count(0)),
              **_call_times(lambda: kernel.decode_attention_gqa(
                  qs, ks, vs, lens, sm_scale=scale), bound_s),
              "library_ms": _time_ms(lib_s, REPS, TRIALS),
@@ -816,7 +816,8 @@ def check_decode_kernel():
         "B": K7_B, "H": K7_H, "Hk": K7_HK, "C": K7_C, "D": K7_D,
         "dtype": "float32", "committed_rows": committed,
         "lengths_min_max": [int(lengths.min()), int(lengths.max())],
-        "n_split_and_len": kernel.decode_splits(K7_B, K7_C, K7_HK),
+        "n_split_and_len": kernel.decode_splits(K7_B, K7_C, K7_HK,
+                                                kernel.sm_count(0)),
         "max_abs_err": max(err, err_0, err_s), "lengths0_max_abs_err": err_0,
         "serve_shape": serve,
         "library_max_abs_err": lib_err,

@@ -28,15 +28,20 @@
 // acc / max(l, 1e-30). Keys past S_kv in a ragged tile get no weight at all.
 //
 // K6 design: both products on the tensor cores in 3xTF32
-// (mma.sync.m16n8k8.tf32). One block of 8 warps per (b * H + h, tile of
-// 128 query rows; 4 warps and 64 rows for D > 128), 16 rows a warp (the
-// mma's m16); the heaviest causal tiles are dispatched first. Each operand
+// (mma.sync.m16n8k8.tf32). One block per (b * H + h, tile of query rows),
+// 16 rows a warp (the mma's m16): 8 warps (128 rows) over 32-key tiles up
+// to D = 128 where those blocks fill the card's SMs twice; 4 warps (64
+// rows) over 16-key tiles where they do not (the serve path's prefill,
+// B=4, S=128: 160 blocks of 128 rows would run in two waves on 132 SMs,
+// the second a fifth full), and above D = 128 (shared memory). The
+// heaviest causal tiles are dispatched first. Each operand
 // x is split once into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna) and a
 // product is lo*hi + hi*hi + hi*lo, summed in float32: one TF32 pass
 // keeps ~3 digits and misses the reference's 1e-4 at D=128 (9.3e-4 in the
-// CPU emulation, kernels/attention/tf32.py); three hold it (6.5e-7). The
-// scaled q tile is split when the block starts; K and V tiles of 32 keys
-// (16 for D > 128) are copied by cp.async (16 bytes a copy, for aligned
+// CPU emulation of tests/test_torch_attention_tf32.py); three hold it
+// (6.5e-7). The
+// scaled q tile is split when the block starts; K and V tiles are copied
+// by cp.async (16 bytes a copy, for aligned
 // float32 rows; converted loads otherwise) while the warps compute on the
 // tile before, then split by all threads at once. The split words sit in
 // shared memory in the order of the mma fragments, so a lane reads each
@@ -59,9 +64,10 @@
 //
 // K7 design: split-KV in one launch. The grid is (B * Hk, n_split): block
 // (g, s) takes cache positions [s * L, (s + 1) * L) of kv head g's rep =
-// H / Hk query heads, L and n_split chosen from B * Hk and C alone (about
-// 4 x 132 blocks, L a multiple of 32 in [32, 256] unless C needs more than
-// 1024 splits), so the longest frontier no longer sets the time. A block
+// H / Hk query heads, L and n_split chosen from B * Hk, C and the card's
+// SM count alone (about 4 blocks an SM, L a multiple of 32 in [32, 256]
+// unless C needs more than 1024 splits; the wrapper passes the count), so
+// the longest frontier no longer sets the time. A block
 // stops at the frontier min(lengths[b], C); one wholly past it writes
 // nothing. Tiles of 32 keys stream through a cp.async double buffer
 // (16-byte copies where rows are aligned, 4-byte or element loads
@@ -100,11 +106,14 @@ constexpr float kNegInf = -1e30f;
 constexpr int kMaxD = 256;
 constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 
+// K6
+constexpr int kSmallBK = 16;  // keys a tile of the 4-warp tile up to D = 128
+
 // K7
 constexpr int kDThreads = 128;
 constexpr int kDT = 32;          // keys per tile
 constexpr int kRB = 8;           // query rows a score pass holds
-constexpr int kTargetBlocks = 4 * 132;
+constexpr int kBlocksPerSM = 4;  // blocks the splits aim at, per SM
 constexpr int kMaxSplitLen = 256;
 constexpr int kMaxSplits = 1024;
 
@@ -191,32 +200,31 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// K6's tiles by the head dims a build serves: 8 warps (128 query rows)
-// over tiles of 32 keys up to D = 128, 4 warps (64 rows) over 16 keys
-// above, so that the block's shared memory fits the SM
-template <int DMAX>
+// K6's tile: WARPS warps of 16 query rows each over tiles of KEYS keys
+// (the launcher's choice, launch_flash_tile)
+template <int WARPS, int KEYS>
 struct FlashTile {
-  static constexpr int kWarps = DMAX > 128 ? 4 : 8;
+  static constexpr int kWarps = WARPS;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kBQ = 16 * kWarps;
-  static constexpr int kBK = DMAX > 128 ? 16 : 32;
+  static constexpr int kBK = KEYS;
 };
 
 // shared words: q, K and V split into hi/lo TF32 words in the order of
 // the mma fragments (2 words an element), and the staged K and V rows
-template <int DMAX>
+template <int WARPS, int KEYS>
 size_t flash_smem_t(int d) {
-  using F = FlashTile<DMAX>;
+  using F = FlashTile<WARPS, KEYS>;
   const size_t dp = (d + 7) / 8 * 8;
   return sizeof(float) * dp * (2 * F::kBQ + 6 * F::kBK);
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(FlashTile<DMAX>::kThreads)
+template <typename T, int DMAX, int WARPS, int KEYS>
+__global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int S_kv,
                  int H, int Hk, int d, int causal, float sm_scale, int vec) {
-  using F = FlashTile<DMAX>;
+  using F = FlashTile<WARPS, KEYS>;
   constexpr int BQ = F::kBQ, BK = F::kBK, NTH = F::kThreads;
   constexpr int NT = DMAX / 8;  // n-tiles of the output, k-steps of Q.K
   constexpr int NK = BK / 8;    // n-tiles of the scores, k-steps of P.V
@@ -458,9 +466,10 @@ struct DecodeSplit {
   int n_split, len;
 };
 
-// the split of C positions over blocks, from B * Hk and C alone
-DecodeSplit decode_split(int groups, int C) {
-  const int want = (kTargetBlocks + groups - 1) / groups;
+// the split of C positions over blocks, from B * Hk, C and the card's SM
+// count alone
+DecodeSplit decode_split(int groups, int C, int sms) {
+  const int want = (kBlocksPerSM * max(sms, 1) + groups - 1) / groups;
   int len = min((C + want - 1) / want, kMaxSplitLen);
   len = max(len, (C + kMaxSplits - 1) / kMaxSplits);
   len = max(kDT, (len + kDT - 1) / kDT * kDT);
@@ -719,8 +728,10 @@ __global__ void __launch_bounds__(kDThreads)
 
 // ------------------------------------------------------------ launch ----
 
+// the most shared memory K6 takes at head dim d (the 8-warp tile up to
+// D = 128)
 size_t flash_smem(int d) {
-  return d > 128 ? flash_smem_t<256>(d) : flash_smem_t<128>(d);
+  return d > 128 ? flash_smem_t<4, 16>(d) : flash_smem_t<8, 32>(d);
 }
 
 size_t decode_smem(int rep, int d, int size) {
@@ -728,13 +739,13 @@ size_t decode_smem(int rep, int d, int size) {
          sizeof(float) * ((size_t)2 * rep * d + (size_t)rep * kDT + 3 * rep);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int WARPS, int KEYS>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int S_kv, int H, int Hk, int d,
                          int causal, float sm_scale, cudaStream_t stream) {
-  using F = FlashTile<DMAX>;
-  const size_t smem = flash_smem_t<DMAX>(d);
-  auto kern = flash_kernel<T, DMAX>;
+  using F = FlashTile<WARPS, KEYS>;
+  const size_t smem = flash_smem_t<WARPS, KEYS>(d);
+  auto kern = flash_kernel<T, DMAX, WARPS, KEYS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -747,32 +758,55 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// K6's tile for head dims up to DMAX: 8 warps (128 query rows) over 32
+// keys up to D = 128 where those blocks fill the card's sms SMs twice;
+// 4 warps (64 rows) over kSmallBK keys where they do not (the serve
+// path's prefill, B=4, S=128: 160 blocks of 128 rows, one to an SM,
+// would run in two waves, the second a fifth full); 4 warps over 16 keys
+// above D = 128, where the 8-warp tile's shared memory does not fit
+template <typename T, int DMAX>
+cudaError_t launch_flash_tile(const void* q, const void* k, const void* v,
+                              void* o, int B, int S, int S_kv, int H, int Hk,
+                              int d, int causal, float sm_scale, int sms,
+                              cudaStream_t stream) {
+  if constexpr (DMAX > 128) {
+    return launch_flash<T, DMAX, 4, 16>(q, k, v, o, B, S, S_kv, H, Hk, d,
+                                        causal, sm_scale, stream);
+  } else {
+    if ((long long)B * H * ((S + 127) / 128) >= 2LL * sms)
+      return launch_flash<T, DMAX, 8, 32>(q, k, v, o, B, S, S_kv, H, Hk, d,
+                                          causal, sm_scale, stream);
+    return launch_flash<T, DMAX, 4, kSmallBK>(q, k, v, o, B, S, S_kv, H, Hk,
+                                              d, causal, sm_scale, stream);
+  }
+}
+
 template <typename T>
 cudaError_t launch_flash_d(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int S_kv, int H, int Hk,
-                           int d, int causal, float sm_scale,
+                           int d, int causal, float sm_scale, int sms,
                            cudaStream_t stream) {
   if (d <= 32)
-    return launch_flash<T, 32>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                               sm_scale, stream);
+    return launch_flash_tile<T, 32>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
+                                    sm_scale, sms, stream);
   if (d <= 64)
-    return launch_flash<T, 64>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                               sm_scale, stream);
+    return launch_flash_tile<T, 64>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
+                                    sm_scale, sms, stream);
   if (d <= 128)
-    return launch_flash<T, 128>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                sm_scale, stream);
-  return launch_flash<T, 256>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                              sm_scale, stream);
+    return launch_flash_tile<T, 128>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
+                                     sm_scale, sms, stream);
+  return launch_flash_tile<T, 256>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
+                                   sm_scale, sms, stream);
 }
 
 template <typename T>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const int* lengths, void* o, float* part,
                           int* tickets, int B, int C, int H, int Hk, int d,
-                          float sm_scale, cudaStream_t stream) {
+                          float sm_scale, int sms, cudaStream_t stream) {
   const int rep = H / Hk;
   const size_t smem = decode_smem(rep, d, sizeof(T));
-  const DecodeSplit sp = decode_split(B * Hk, C);
+  const DecodeSplit sp = decode_split(B * Hk, C, sms);
   const int row = d * (int)sizeof(T);
   const uintptr_t at = (uintptr_t)k | (uintptr_t)v;
   const int cp = row % 16 == 0 && at % 16 == 0  ? 16
@@ -801,54 +835,59 @@ extern "C" {
 
 // dtype: 0 float32, 1 float16, 2 bfloat16. q (B, S, H, d), k and v
 // (B, S_kv, Hk, d), o (B, S, H, d), all contiguous; S, S_kv >= 1 and
-// S <= 65535 * 64. Returns a cudaError_t (0 = launched).
+// S <= 65535 * 64; sms the card's SM count (the tile's choice). Returns a
+// cudaError_t (0 = launched).
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* o, int B, int S, int S_kv,
                            int H, int Hk, int d, int causal, float sm_scale,
-                           void* stream_) {
+                           int sms, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  if (!shapes_ok(B, H, Hk, d) || S < 1 || S_kv < 1 ||
+  if (!shapes_ok(B, H, Hk, d) || S < 1 || S_kv < 1 || sms < 1 ||
       (S + 63) / 64 > 65535 || flash_smem(d) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_flash_d<float>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                        causal, sm_scale, stream);
+                                        causal, sm_scale, sms, stream);
     case 1:
       return (int)launch_flash_d<__half>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                         causal, sm_scale, stream);
+                                         causal, sm_scale, sms, stream);
     case 2:
       return (int)launch_flash_d<__nv_bfloat16>(q, k, v, o, B, S, S_kv, H, Hk,
-                                                d, causal, sm_scale, stream);
+                                                d, causal, sm_scale, sms,
+                                                stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The number of splits K7 takes over C positions at B * Hk kv heads; the
-// positions a split covers go to *len.
-int decode_attention_splits(int B, int C, int Hk, int* len) {
-  const DecodeSplit sp = decode_split(B * Hk, C);
+// The number of splits K7 takes over C positions at B * Hk kv heads on a
+// card of sms SMs; the positions a split covers go to *len.
+int decode_attention_splits(int B, int C, int Hk, int sms, int* len) {
+  const DecodeSplit sp = decode_split(B * Hk, C, sms);
   *len = sp.len;
   return sp.n_split;
 }
 
 // float32 words of K7's partials a call needs: per (b, kv head, split), its
 // rep x d output sums, and its running max and sum per query row.
-long long decode_attention_scratch_floats(int B, int C, int H, int Hk, int d) {
-  const long long n_split = decode_split(B * Hk, C).n_split;
+long long decode_attention_scratch_floats(int B, int C, int H, int Hk, int d,
+                                         int sms) {
+  const long long n_split = decode_split(B * Hk, C, sms).n_split;
   return (long long)B * Hk * n_split * (H / Hk) * (2 + (long long)d);
 }
 
 // q (B, H, d), caches (B, C, Hk, d), lengths (B,) int32, o (B, H, d), all
 // contiguous, C >= 1; part holds decode_attention_scratch_floats words and
-// tickets B * Hk int32 words that are 0 (each call leaves them 0). Returns
-// a cudaError_t (0 = launched).
+// tickets B * Hk int32 words that are 0 (each call leaves them 0); sms the
+// card's SM count, as given to decode_attention_scratch_floats. Returns a
+// cudaError_t (0 = launched).
 int decode_attention_launch(int dtype, const void* q, const void* k,
                             const void* v, const int* lengths, void* o,
                             void* part, void* tickets, int B, int C, int H,
-                            int Hk, int d, float sm_scale, void* stream_) {
+                            int Hk, int d, float sm_scale, int sms,
+                            void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  if (!shapes_ok(B, H, Hk, d) || C < 1 ||
+  if (!shapes_ok(B, H, Hk, d) || C < 1 || sms < 1 ||
       decode_smem(H / Hk, d, dtype_size(dtype)) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   float* p = (float*)part;
@@ -856,13 +895,14 @@ int decode_attention_launch(int dtype, const void* q, const void* k,
   switch (dtype) {
     case 0:
       return (int)launch_decode<float>(q, k, v, lengths, o, p, t, B, C, H, Hk,
-                                       d, sm_scale, stream);
+                                       d, sm_scale, sms, stream);
     case 1:
       return (int)launch_decode<__half>(q, k, v, lengths, o, p, t, B, C, H,
-                                        Hk, d, sm_scale, stream);
+                                        Hk, d, sm_scale, sms, stream);
     case 2:
       return (int)launch_decode<__nv_bfloat16>(q, k, v, lengths, o, p, t, B,
-                                               C, H, Hk, d, sm_scale, stream);
+                                               C, H, Hk, d, sm_scale, sms,
+                                               stream);
   }
   return (int)cudaErrorInvalidValue;
 }

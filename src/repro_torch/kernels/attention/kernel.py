@@ -16,8 +16,9 @@ there). Each kernel has two entries:
 
 Sizes are run-time: no block has to divide S or S_kv (the reference
 asserts it). ``block_q`` and ``block_k`` are kept for the reference's
-signature and change nothing: the CUDA kernel's tiles are fixed, and the
-plain versions compute the full scores.
+signature and change nothing: the CUDA kernels choose their own tiles
+and splits from the shape and the card's SM count (``sm_count``), and
+the plain versions compute the full scores.
 
 On a CUDA tensor each entry launches its kernel on the current stream
 (``repro_torch.device.launch``), built from source at first use
@@ -28,7 +29,8 @@ in ``ref.py``. ``flash_attention.launches`` and
 either entry, one a call.
 
 K7 splits the cache positions over blocks (``decode_splits``) and merges
-the splits' partials inside the same launch. Its scratch:
+the splits' partials inside the same launch. Its scratch (sizes on a
+132-SM H100):
 
 - the partials, allocated with ``torch.empty`` for each call:
   ``4 * B * Hk * n_split * (H // Hk) * (D + 2)`` bytes
@@ -68,14 +70,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                           i, f, p]
+                                           i, f, i, p]
     lib.flash_attention_launch.restype = i
     lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
-                                            i, i, f, p]
+                                            i, i, f, i, p]
     lib.decode_attention_launch.restype = i
-    lib.decode_attention_splits.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.decode_attention_splits.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.decode_attention_splits.restype = i
-    lib.decode_attention_scratch_floats.argtypes = [i, i, i, i, i]
+    lib.decode_attention_scratch_floats.argtypes = [i, i, i, i, i, i]
     lib.decode_attention_scratch_floats.restype = ctypes.c_longlong
     lib.attention_error_string.argtypes = [i]
     lib.attention_error_string.restype = ctypes.c_char_p
@@ -101,6 +103,13 @@ def _check_cuda(what, *tensors):
                         f"{[t.dtype for t in tensors]}")
     if any(t.numel() > _INT32_MAX for t in tensors):
         raise ValueError(f"{what}: tensors must hold < 2**31 elements")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, asked once: K6 picks its
+    tile and K7 its splits from it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _raise_on(rc, what):
@@ -136,7 +145,7 @@ def _launch_flash(q, k, v, causal, sm_scale):
     rc = device.launch(
         q.device, _lib().flash_attention_launch, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s_kv,
-        h, hk, d, int(bool(causal)), float(sm_scale),
+        h, hk, d, int(bool(causal)), float(sm_scale), sm_count(q.device.index),
     )
     _raise_on(rc, what)
     flash_attention.launches += 1
@@ -158,17 +167,18 @@ def _launch_decode(q, k_cache, v_cache, lengths, sm_scale):
     if cap == 0:
         raise ValueError(f"{what}: the cache has no entries")
     dev = q.device
+    sms = sm_count(dev.index)
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-    part = torch.empty(decode_scratch_floats(b, cap, h, hk, d),
+    part = torch.empty(decode_scratch_floats(b, cap, h, hk, d, sms),
                        dtype=torch.float32, device=dev)
     tickets = _tickets(dev, b * hk)
     rc = device.launch(
         dev, _lib().decode_attention_launch, _DTYPES[q.dtype], q.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part.data_ptr(), tickets.data_ptr(), b, cap, h, hk,
-        d, float(sm_scale),
+        d, float(sm_scale), sms,
     )
     _raise_on(rc, what)
     decode_attention.launches += 1
@@ -176,20 +186,22 @@ def _launch_decode(q, k_cache, v_cache, lengths, sm_scale):
 
 
 @functools.lru_cache(maxsize=1024)
-def decode_splits(b: int, cap: int, hk: int) -> tuple[int, int]:
+def decode_splits(b: int, cap: int, hk: int, sms: int) -> tuple[int, int]:
     """``(n_split, split_len)``: the blocks K7 splits ``cap`` cache
     positions over, per (b, kv head), and the positions each covers, as
-    the built library chooses them from ``b * hk`` and ``cap`` alone."""
+    the built library chooses them from ``b * hk``, ``cap`` and the
+    card's SM count ``sms`` alone (``sm_count``)."""
     length = ctypes.c_int(0)
-    n = _lib().decode_attention_splits(b, cap, hk, ctypes.byref(length))
+    n = _lib().decode_attention_splits(b, cap, hk, sms, ctypes.byref(length))
     return n, length.value
 
 
 @functools.lru_cache(maxsize=1024)
-def decode_scratch_floats(b: int, cap: int, h: int, hk: int, d: int) -> int:
-    """float32 words of partials a K7 call needs (asked of the built
-    library, once per shape)."""
-    return _lib().decode_attention_scratch_floats(b, cap, h, hk, d)
+def decode_scratch_floats(b: int, cap: int, h: int, hk: int, d: int,
+                          sms: int) -> int:
+    """float32 words of partials a K7 call needs on a card of ``sms``
+    SMs (asked of the built library, once per shape)."""
+    return _lib().decode_attention_scratch_floats(b, cap, h, hk, d, sms)
 
 
 _TICKETS: dict = {}

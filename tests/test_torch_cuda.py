@@ -550,7 +550,7 @@ def test_decode_split_edges(cuda, edge):
     """Frontiers one before, at and one past the end of split ``edge``,
     over C=300 positions (no tile divides it), 8 query heads on 2."""
     b, h, hk, c, d = 4, 8, 2, 300, 64
-    n_split, length = attn.decode_splits(b, c, hk)
+    n_split, length = attn.decode_splits(b, c, hk, attn.sm_count(0))
     assert n_split > edge and length % 32 == 0
     e = edge * length
     q, kc, vc, lens = _decode_case(cuda, 20 + edge, b, h, hk, c, d,
@@ -599,10 +599,17 @@ def test_decode_float16_copy_widths(cuda, d):
 
 def test_decode_split_counts(cuda):
     """The splits K7 takes: more than one at decode_32k's shape and at
-    the serve path's, of at least 32 keys each."""
-    assert attn.decode_splits(32, 8192, 8) == (32, 256)
-    assert attn.decode_splits(4, 161, 8) == (6, 32)
-    assert attn.decode_splits(1, 8192, 1) == (256, 32)
+    the serve path's, of at least 32 keys each, on a 132-SM H100 and on
+    this card; fewer and longer on a card of 16 SMs."""
+    assert attn.decode_splits(32, 8192, 8, 132) == (32, 256)
+    assert attn.decode_splits(4, 161, 8, 132) == (6, 32)
+    assert attn.decode_splits(1, 8192, 1, 132) == (256, 32)
+    assert attn.decode_splits(1, 8192, 8, 132) == (64, 128)
+    assert attn.decode_splits(1, 8192, 8, 16) == (32, 256)
+    sms = attn.sm_count(0)
+    for b, c, hk in [(32, 8192, 8), (4, 161, 8)]:
+        n_split, length = attn.decode_splits(b, c, hk, sms)
+        assert n_split > 1 and length >= 32 and n_split * length >= c
 
 
 def test_decode_is_deterministic_and_rearms_its_tickets(cuda):
@@ -656,6 +663,29 @@ def test_flash_half_types(cuda, dtype, d):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_both_tiles(cuda, d, causal):
+    """Up to D=128 K6 takes 8 warps of 16 rows where the blocks fill the
+    card twice and 4 warps where they do not; the SM count passed to the
+    launcher picks one (1 SM: 8 warps, 10**6: 4) on the same ragged
+    inputs, and each holds the plain version."""
+    b, s, h, hk = 2, 300, 4, 2
+    q = _randn(80, b, s, h, d, device=cuda)
+    k, v = _randn(81, b, s, hk, d, device=cuda), _randn(82, b, s, hk, d,
+                                                        device=cuda)
+    want = flash_gqa_ref(q, k, v, causal=causal)
+    for sms in (1, 10**6):
+        out = torch.empty_like(q)
+        rc = attn._lib().flash_attention_launch(
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+            s, s, h, hk, d, int(causal), d ** -0.5, sms,
+            torch.cuda.current_stream(cuda).cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert (out - want).abs().max().item() <= ATTN_TOL[torch.float32]
 
 
 def test_flash_qwen3_heads_many_tiles(cuda):
