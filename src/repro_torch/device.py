@@ -10,6 +10,8 @@ tests.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -51,3 +53,10 @@ def raw_stream(dev: torch.device) -> int:
     """The raw handle of CUDA device ``dev``'s current stream, the one
     ``launch`` passes (``torch._C._cuda_getCurrentRawStream``)."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, asked once: K6 picks its
+    tile and K7 its splits from it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -53,6 +53,7 @@ import functools
 import torch
 
 from repro_torch import _build, device
+from repro_torch.device import sm_count
 from repro_torch.kernels.attention.ref import (
     decode_attention_ref,
     decode_gqa_ref,
@@ -103,13 +104,6 @@ def _check_cuda(what, *tensors):
                         f"{[t.dtype for t in tensors]}")
     if any(t.numel() > _INT32_MAX for t in tensors):
         raise ValueError(f"{what}: tensors must hold < 2**31 elements")
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """The SM count of CUDA device ``index``, asked once: K6 picks its
-    tile and K7 its splits from it."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _raise_on(rc, what):

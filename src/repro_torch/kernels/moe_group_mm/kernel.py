@@ -13,8 +13,10 @@ d_out)`` weights, float32 sums, ``out`` in x's dtype. Every row block is
 computed, pad rows included, as the TPU kernel does; expert ids are
 clipped to ``[0, E)``. ``block_t`` is any positive size.
 
-On a CUDA tensor ``group_matmul`` launches the kernel, built from source
-at first use (``repro_torch._build``), and raises on any build or launch
+On a CUDA tensor ``group_matmul`` launches the kernel (float32 in
+3×TF32 on the tensor cores, float16 and bfloat16 natively), built from
+source at first use (``repro_torch._build``), through
+``repro_torch.device.launch``, and raises on any build or launch
 failure. Only tensors on the CPU, which the tests pass, go to the plain
 version in ``ref.py``; the reference's ``interpret=`` has no
 counterpart, since the device decides. ``group_matmul.launches`` counts
@@ -28,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, device
 from repro_torch.kernels.moe_group_mm.ref import group_matmul_ref
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -88,12 +90,11 @@ def group_matmul(x_sorted, w, block_expert, *, block_t: int = 128):
     x = x_sorted.contiguous()
     wc = w.contiguous()
     be = block_expert[:n_blocks].to(torch.int32).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().group_matmul_launch(
-            _DTYPES[x.dtype], x.data_ptr(), wc.data_ptr(), be.data_ptr(),
-            out.data_ptr(), t_pad, d_in, d_out, n_experts, block_t, stream,
-        )
+    rc = device.launch(
+        dev, _lib().group_matmul_launch, _DTYPES[x.dtype], x.data_ptr(),
+        wc.data_ptr(), be.data_ptr(), out.data_ptr(), t_pad, d_in, d_out,
+        n_experts, block_t,
+    )
     if rc != 0:
         raise RuntimeError("group_matmul kernel launch failed: "
                            + _lib().group_matmul_error_string(rc).decode())

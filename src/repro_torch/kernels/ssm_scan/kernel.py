@@ -17,7 +17,8 @@ kept for the reference's signature and change nothing. The state size n
 must be at most 16 on the card (``MAX_STATE``; Mamba-1's is 16).
 
 On a CUDA tensor each entry launches the kernel, built from source at
-first use (``repro_torch._build``), and raises on any build or launch
+first use (``repro_torch._build``), through
+``repro_torch.device.launch``, and raises on any build or launch
 failure. Only tensors on the CPU, which the tests pass, go to the plain
 versions in ``ref.py``. ``ssm_scan.launches`` counts the kernel's
 launches through either entry; S = 0 returns without one.
@@ -30,12 +31,11 @@ import functools
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, device
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
 MAX_STATE = 16  # kMaxN in csrc/ssm_scan.cu
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_MAX_GRID_Y = 65535
 
 
 @functools.cache
@@ -81,8 +81,6 @@ def _launch(xi, dt, bmat, cmat, a_neg, h0):
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"selective_scan: state size {n} outside "
                          f"[1, {MAX_STATE}] on the card")
-    if b > _MAX_GRID_Y:
-        raise ValueError(f"selective_scan: batch {b} above {_MAX_GRID_Y}")
     if xi.numel() >= 2**31:
         raise ValueError("selective_scan: xi must hold < 2**31 elements")
     y = torch.empty_like(xi, memory_format=torch.contiguous_format)
@@ -94,14 +92,12 @@ def _launch(xi, dt, bmat, cmat, a_neg, h0):
     x = xi.contiguous()
     d, bm, cm, a = (t.float().contiguous() for t in (dt, bmat, cmat, a_neg))
     h_in = None if h0 is None else h0.float().contiguous()
-    with torch.cuda.device(xi.device):
-        stream = torch.cuda.current_stream(xi.device).cuda_stream
-        rc = _lib().ssm_scan_launch(
-            _DTYPES[x.dtype], x.data_ptr(), d.data_ptr(), bm.data_ptr(),
-            cm.data_ptr(), a.data_ptr(),
-            None if h_in is None else h_in.data_ptr(), y.data_ptr(),
-            h_out.data_ptr(), b, s, di, n, stream,
-        )
+    rc = device.launch(
+        xi.device, _lib().ssm_scan_launch, _DTYPES[x.dtype], x.data_ptr(),
+        d.data_ptr(), bm.data_ptr(), cm.data_ptr(), a.data_ptr(),
+        None if h_in is None else h_in.data_ptr(), y.data_ptr(),
+        h_out.data_ptr(), b, s, di, n,
+    )
     if rc != 0:
         raise RuntimeError("ssm_scan kernel launch failed: "
                            + _lib().ssm_scan_error_string(rc).decode())

@@ -737,7 +737,7 @@ def test_reduced_qwen3_on_card_matches_the_cpu(cuda):
 # bound (1e-4; the exponentials and the state sum round differently);
 # bfloat16 outputs within 2e-2, about two bfloat16 steps of outputs
 # below 2, since both round one float32 result
-SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: 1e-4, torch.float16: 1e-2, torch.bfloat16: 2e-2}
 
 
 def _scan_inputs(seed, b, s, di, n, device):
@@ -786,9 +786,103 @@ def test_ssm_scan_kernel_reference_signature_and_bfloat16(cuda):
                           torch.zeros(160, 17, device=cuda))
 
 
+# K8's redesign: grids of whole and partial rounds, lengths around the
+# 32-position chunk, state sizes, input types, the copy paths (16-byte where di, n and pointers allow,
+# plain loads else) and large |a·dt| through ex2.approx
+
+
+def _check_scan(cuda, b, s, di, n, *, dtype=torch.float32, with_h0=False,
+                seed=15, a_scale=1.0):
+    xi, dt, bm, cm, a_neg, h0 = _scan_inputs(seed, b, s, di, n, cuda)
+    xi, a_neg = xi.to(dtype), a_neg * a_scale
+    h0 = h0 if with_h0 else None
+    before = k8.ssm_scan.launches
+    y, h = k8.selective_scan(xi, dt, bm, cm, a_neg, h0)
+    y_ref, h_ref = selective_scan_ref(xi, dt, bm, cm, a_neg, h0)
+    torch.cuda.synchronize()
+    assert k8.ssm_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == (b, s, di)
+    assert h.dtype == torch.float32 and h.shape == (b, di, n)
+    tol = SCAN_TOL[dtype]
+    assert (y.float() - y_ref.float()).abs().max().item() <= tol
+    assert (h - h_ref).abs().max().item() <= SCAN_TOL[torch.float32]
+    return y, h
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 4])
+@pytest.mark.parametrize("extra", [0, 8])
+def test_ssm_scan_whole_and_partial_rounds(cuda, blocks_per_sm, extra):
+    """di chosen from the SM count, 128 channels a block: one block an SM
+    (one whole round) or four (more than fit at once: a second round);
+    ``extra`` = 8 adds one ragged slab."""
+    di = 128 * blocks_per_sm * attn.sm_count(0) + extra
+    _check_scan(cuda, 1, 40, di, 16, with_h0=True)
+    _check_scan(cuda, 2, 40, di // 2, 16, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 4096])
+def test_ssm_scan_lengths_around_the_chunk(cuda, s):
+    _check_scan(cuda, 2, s, 256, 16)
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_ssm_scan_state_sizes_types_and_carried_state(cuda, n, dtype):
+    _check_scan(cuda, 3, 70, 200, n, dtype=dtype, with_h0=True)
+
+
+@pytest.mark.parametrize("di,dtype", [
+    (33, torch.float32), (36, torch.float16), (8192 - 96, torch.bfloat16),
+])
+def test_ssm_scan_plain_load_paths(cuda, di, dtype):
+    """di that 16-byte copies cannot tile (33; 36 halves) and one that
+    they can, for each input type."""
+    _check_scan(cuda, 2, 45, di, 16, dtype=dtype)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes into its storage."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_ssm_scan_unaligned_inputs(cuda):
+    """Inputs 4 bytes off a 16-byte boundary take the plain loads."""
+    args = _scan_inputs(16, 2, 50, 256, 16, cuda)
+    xi, dt, bm, cm, a_neg, h0 = (_unaligned(t) for t in args)
+    assert xi.data_ptr() % 16 and bm.data_ptr() % 16
+    y, h = k8.selective_scan(xi, dt, bm, cm, a_neg, h0)
+    y_ref, h_ref = selective_scan_ref(xi, dt, bm, cm, a_neg, h0)
+    torch.cuda.synchronize()
+    assert (y - y_ref).abs().max().item() <= SCAN_TOL[torch.float32]
+    assert (h - h_ref).abs().max().item() <= SCAN_TOL[torch.float32]
+
+
+def test_ssm_scan_large_decay_arguments(cuda):
+    """|a·dt| of tens, where ex2.approx's argument error grows and the
+    decays are far below float32's 1e-4 (some flush to zero)."""
+    xi, dt, bm, cm, a_neg, h0 = _scan_inputs(17, 2, 300, 128, 16, cuda)
+    a_neg = a_neg * 20.0
+    assert (a_neg[None, None] * dt[..., None]).abs().max().item() > 30
+    y, h = k8.selective_scan(xi, dt, bm, cm, a_neg, h0)
+    y_ref, h_ref = selective_scan_ref(xi, dt, bm, cm, a_neg, h0)
+    torch.cuda.synchronize()
+    assert (y - y_ref).abs().max().item() <= SCAN_TOL[torch.float32]
+    assert (h - h_ref).abs().max().item() <= SCAN_TOL[torch.float32]
+
+
+def test_ssm_scan_same_bits_twice(cuda):
+    y, h = _check_scan(cuda, 4, 130, 1024, 16, with_h0=True, seed=18)
+    y2, h2 = _check_scan(cuda, 4, 130, 1024, 16, with_h0=True, seed=18)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
 # K9 against its plain version: float32 within 1e-4 (sums of up to 256
 # products in another order than cuBLAS's); bfloat16 within 2e-2
-GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GMM_TOL = {torch.float32: 1e-4, torch.float16: 2e-2, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -809,6 +903,60 @@ def test_group_matmul_kernel_matches_plain(cuda, e, din, dout, bt, nb, dtype):
     assert k9.group_matmul.launches == before + 1
     assert got.shape == (nb * bt, dout) and got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= GMM_TOL[dtype]
+
+
+# K9's redesign: 3xTF32 (float32) and m16n8k16 (halves) on the tensor
+# cores, every block_t the reference's tests use, d_in and d_out off the
+# tile, clipped expert ids and zero pad rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("bt", [8, 16, 32, 128, 200])
+@pytest.mark.parametrize("din,dout", [(100, 130), (264, 200)])
+def test_group_matmul_tensor_cores(cuda, dtype, bt, din, dout):
+    e, nb = 5, 6
+    g = torch.Generator().manual_seed(bt * din + dout)
+    x = torch.randn(nb * bt, din, generator=g)
+    x[(nb - 2) * bt:] = 0.0  # two trailing pad blocks
+    w = torch.randn(e, din, dout, generator=g) * din ** -0.5
+    be = torch.tensor([0, -1, 3, e + 3, 2, 4, 1], dtype=torch.int32)
+    x, w, be = x.to(cuda, dtype), w.to(cuda, dtype), be.to(cuda)
+    before = k9.group_matmul.launches
+    got = k9.group_matmul(x, w, be, block_t=bt)
+    want = group_matmul_ref(x, w, be, block_t=bt)
+    torch.cuda.synchronize()
+    assert k9.group_matmul.launches == before + 1
+    assert got.shape == (nb * bt, dout) and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= GMM_TOL[dtype]
+    assert not got[(nb - 2) * bt:].any()
+
+
+def test_group_matmul_clipped_ids_read_the_end_experts(cuda):
+    """Ids -1 and E + 3 give the products of experts 0 and E - 1."""
+    e, bt, din, dout = 3, 16, 64, 72
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(2 * bt, din, generator=g).to(cuda)
+    w = torch.randn(e, din, dout, generator=g).to(cuda) * 0.125
+    got = k9.group_matmul(x, w, torch.tensor([-1, e + 3], dtype=torch.int32,
+                                             device=cuda), block_t=bt)
+    want = torch.cat([x[:bt] @ w[0], x[bt:] @ w[e - 1]])
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= GMM_TOL[torch.float32]
+
+
+def test_group_matmul_unaligned_views(cuda):
+    """x and w 4 bytes off a 16-byte boundary take the plain loads."""
+    e, bt, din, dout = 4, 32, 128, 96
+    g = torch.Generator().manual_seed(22)
+    x = _unaligned(torch.randn(4 * bt, din, generator=g).to(cuda))
+    w = _unaligned(torch.randn(e, din, dout, generator=g).to(cuda) * 0.1)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    be = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=cuda)
+    got = k9.group_matmul(x, w, be, block_t=bt)
+    want = group_matmul_ref(x, w, be, block_t=bt)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= GMM_TOL[torch.float32]
 
 
 def test_reduced_phi35_moe_on_card_matches_the_cpu(cuda):

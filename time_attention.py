@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""K6 (flash prefill) and K7 (decode attention) timed on one card, for
+"""K6 (flash prefill) and K7 (decode attention), and on request K8
+(selective scan) and K9 (grouped expert matmul), timed on one card, for
 the ``repro_torch`` of any source tree.
 
 Run from the repository root on a machine with a CUDA card::
 
-    python3 time_attention.py [--src DIR] [--label NAME]
+    python3 time_attention.py [--src DIR] [--label NAME] [--kernels K6,K7,K8,K9]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two commits can be timed side by
@@ -17,13 +18,18 @@ the host's microseconds a call), on the same shapes and seeds:
 - K6 causal at qwen3-14b's heads (H=40 over Hk=8, D=128): the serve
   path's prefill, B=4, S=128, and the kernel phase's B=1, S=4096;
 - K7 at the same heads: the serve path's B=4 over 161 positions at
-  frontier 160, and decode_32k cut to B=32 over 8192 positions.
+  frontier 160, and decode_32k cut to B=32 over 8192 positions;
+- K8 at falcon-mamba-7b's widths (di=8192, n=16): the SSM path's
+  prefill, B=4, S=128, and the kernel phase's B=4, S=4096;
+- K9 at phi3.5-moe's prefill (T_pad=3072, block_t=128): w_in (4096 ->
+  6400) and w_out (6400 -> 4096).
 
-Each case is also held against its plain version (``ATTN_ATOL``). Where
-the tree's K6 launcher picks its tile from the SM count
-(``kernel.sm_count``), the serve prefill is timed under both tiles too,
-by passing the launcher an SM count that forces each. Prints one JSON
-line, with the card's name and power limit.
+``--kernels`` names the kernels to time (default ``K6,K7``). Each case
+is also held against its plain version (``ATTN_ATOL``, ``SCAN_ATOL``,
+``_gmm_err``'s bounds). Where the tree's K6 launcher picks its tile from
+the SM count (``kernel.sm_count``), the serve prefill is timed under
+both tiles too, by passing the launcher an SM count that forces each.
+Prints one JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -116,25 +122,80 @@ def time_k7(kernel, decode_gqa_ref) -> dict:
     return out
 
 
+def time_k8(kernel, selective_scan_ref) -> dict:
+    cases = {"serve": (cs.SERVE_B, cs.SERVE_P, 33), "kernel": (cs.K8_B,
+                                                               cs.K8_S, 30)}
+    out = {}
+    for name, (b, s, seed) in cases.items():
+        args = cs.scan_inputs(seed, b, s, cs.K8_DI, cs.K8_N)
+        y, h = kernel.selective_scan(*args)
+        y_ref, h_ref = selective_scan_ref(*args)
+        err = max(cs._scan_err(y, y_ref, f"K8 {name} y"),
+                  cs._scan_err(h, h_ref, f"K8 {name} h_final"))
+        bound = cs._scan_bounds(b, s, cs.K8_DI, cs.K8_N)["bound_ms"]
+        out[name] = {"B": b, "S": s, "max_abs_err": err, **cs._call_times(
+            lambda: kernel.selective_scan(*args), bound)}
+        del args, y, h, y_ref, h_ref
+    return out
+
+
+def time_k9(kernel, group_matmul_ref) -> dict:
+    x, w_in, w_out, h, be, experts = cs.gmm_inputs(40, cs.K9_BLOCK_T)
+    out = {}
+    for name, (a, w) in {"w_in": (x, w_in), "w_out": (h, w_out)}.items():
+        call = lambda: kernel.group_matmul(  # noqa: E731
+            a, w, be, block_t=cs.K9_BLOCK_T)
+        want = group_matmul_ref(a, w, be, block_t=cs.K9_BLOCK_T)
+        err, share = cs._gmm_err(a, w, be, cs.K9_BLOCK_T, call(), want,
+                                 f"K9 {name}")
+        del want
+        bounds = cs._gmm_bounds(a.shape[0], w.shape[1], w.shape[2], experts)
+        out[name] = {"T_pad": a.shape[0], "d_in": w.shape[1],
+                     "d_out": w.shape[2], "max_abs_err": err,
+                     "tf32_limit_share": share,
+                     "f32_cuda_core_bound_ms":
+                         bounds["f32_cuda_core_bound_ms"],
+                     **cs._call_times(call, bounds["bound_ms"])}
+    dense = w_in[0]
+    out["dense_product_ms"] = cs._time_ms(lambda: x @ dense, cs.REPS,
+                                          cs.TRIALS)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(cs.ROOT, "src"))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--kernels", default="K6,K7",
+                    help="comma-separated subset of K6,K7,K8,K9")
     a = ap.parse_args(argv)
+    wanted = a.kernels.split(",")
+    if not set(wanted) <= {"K6", "K7", "K8", "K9"}:
+        ap.error(f"--kernels: unknown kernels in {a.kernels}")
     if not torch.cuda.is_available():
         print("time_attention: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(a.src))
     from repro_torch.kernels.attention import kernel
     from repro_torch.kernels.attention.ref import decode_gqa_ref, flash_gqa_ref
+    from repro_torch.kernels.moe_group_mm import kernel as k9
+    from repro_torch.kernels.moe_group_mm.ref import group_matmul_ref
+    from repro_torch.kernels.ssm_scan import kernel as k8
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps({
-        "label": a.label, "src": os.path.abspath(a.src),
-        "card": cs._card_line(), "kernel_file": kernel.__file__,
-        "K6": time_k6(kernel, flash_gqa_ref),
-        "K7": time_k7(kernel, decode_gqa_ref),
-    }))
+    timers = {
+        "K6": lambda: time_k6(kernel, flash_gqa_ref),
+        "K7": lambda: time_k7(kernel, decode_gqa_ref),
+        "K8": lambda: time_k8(k8, selective_scan_ref),
+        "K9": lambda: time_k9(k9, group_matmul_ref),
+    }
+    row = {"label": a.label, "src": os.path.abspath(a.src),
+           "card": cs._card_line(), "kernel_file": kernel.__file__}
+    for name in wanted:
+        row[name] = timers[name]()
+        torch.cuda.empty_cache()
+    print(json.dumps(row))
     return 0
 
 
