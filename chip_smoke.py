@@ -14,11 +14,17 @@ failure exits non-zero:
 3. kernel — each kernel against its plain torch version on the card,
    bit for bit, on seeded inputs, timed with CUDA events (20 launches
    after a warm-up) beside its bound:
-   the wave-step kernel (K1) on an image of 2**24 + 1 words with 2**20
-   lanes x 8 steps (WAR aliasing, clipped gathers, NaN payloads), on
-   one 8-lane step, on an L2-resident image (64 steps, where barriers
-   weigh more), with the cost of one grid barrier at each grid timed
-   alone; the hazard frontier kernel (K2) at K=4 rows, S=D=65536, and
+   the wave-step kernel (K1) at ``K1_SHAPES`` (WAR aliasing, clipped
+   gathers, NaN payloads): an image of 2**24 + 1 words with 2**20 lanes
+   x 8 steps, an L2-resident image (64 steps, where barriers weigh
+   more), and the launches of bnn, RAWloop, hist+add, filter_pipe,
+   WARloop and stream_dot, each printed with the path it took (resident
+   in one block's shared memory, or wide) and timed as K2 is (the whole
+   call, the card alone, the host per call) beside its bytes and
+   sector-aware bounds,
+   each also with two barriers a step of its path timed alone at its
+   blocks; and one 8-lane step; the hazard frontier kernel (K2) at K=4
+   rows, S=D=65536, and
    at fused_raw_loops' K=1, S=D=2**20, both sides (monotonic rows with
    equal-address runs and negative addresses, the whole wrapper call
    timed beside ``torch.searchsorted`` (the median of 7 runs of 20
@@ -26,7 +32,8 @@ failure exits non-zero:
    one unsorted row at K=4 in a third case, timed too); the forwarding
    kernel (K3) at
    S=D=2**20 over a float64 memory of 2**24 + 1 words, about 30% of the
-   producers invalid, ``lookback=min_lookback(src)``; the ELL SpMV
+   producers invalid, ``lookback=min_lookback(src)``, timed as K2 is
+   beside its bytes and sector-aware bounds; the ELL SpMV
    kernel (K4) on a seeded CSR of 2**20 rows (lengths 1..16, columns
    sorted and distinct in each row over 2**20), float32, timed beside
    one cuSPARSE product (``torch.mv`` on a sparse CSR tensor), timed as
@@ -60,8 +67,9 @@ failure exits non-zero:
    ``executor.execute(..., backend="torch")`` on the card, each final
    array bit-identical to the port's sequential oracle, plus one
    ``run_sequential`` baseline; the wave kernel's launch count is read
-   around this phase only, and K1 is checked again at the largest
-   launch of the phase;
+   around this phase only, every launch whose image and lanes fit one
+   block must take the resident path and every other the wide one,
+   and K1 is checked again at the largest launch of the phase;
 5. DU path — the port's ``frontier_crosschecks`` on the card over the
    main path's plans: RAWloop/WARloop/WAWloop waves from K2 and
    ``wave_partition`` equal the plan's, tanh+spmv's guarded forwarding
@@ -78,11 +86,13 @@ failure exits non-zero:
    ``BENCH_SPEC.json``'s scales (8x) through ``executor.execute(...,
    speculation="auto", backend="torch")``, each final array
    bit-identical to the oracle and to the hand-written oracles of
-   ``kernels/dynloop/ref.py``; K1 launches read around it;
+   ``kernels/dynloop/ref.py``; K1 launches read around it, the one-block
+   ones on the resident path;
 8. streaming path — the three streaming programs at their default
    scales through ``execute(..., fifo_depth=d, backend="torch")`` for
    d in 1, 2, 4, arrays bit-identical to both oracles, wave counts
-   non-increasing in depth; K1 launches read around it;
+   non-increasing in depth; K1 launches read around it, the one-block
+   ones on the resident path;
 9. simulate — the nine Table-1 programs at the reference benchmark's
    1x scales through ``simulator.simulate`` (event engine) in STA, LSQ,
    FUS1 and FUS2, every result's arrays bit-identical to the oracle and
@@ -145,10 +155,23 @@ SCALES_1X = {
 MODES = ("STA", "LSQ", "FUS1", "FUS2")
 SEQ_PROGRAM, SEQ_STEPS = "hist+add", 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
 INT32_LANES_PER_SM = 64  # Hopper: INT32 operations per SM per clock
 BIG_M, BIG_W, BIG_S = 2**24 + 1, 2**20, 8
 L2_M, L2_W, L2_S = 2**18 + 1, 2**18, 64
 SYNC_STEPS = (100, 1100)
+# K1's timed shapes (M, S, W): the kernel phase's, an L2-resident image,
+# and launches of the main and streaming paths (their image sizes and
+# run.segments): bnn's largest, RAWloop's, hist+add's longest,
+# filter_pipe's at FIFO depth 1 (one block), and WARloop's and
+# stream_dot's widest (wide launches on either side of four lanes a
+# thread)
+K1_SHAPES = {
+    "kernel_phase": (BIG_M, BIG_S, BIG_W), "l2_resident": (L2_M, L2_S, L2_W),
+    "bnn": (66049, 16, 8192), "RAWloop": (32769, 3, 16384),
+    "hist+add": (97, 515, 64), "filter_pipe": (2050, 2049, 8),
+    "WARloop": (32769, 1, 32768), "stream_dot": (4354, 1, 8192),
+}
 K2_K, K2_S, K2_D = 4, 65536, 65536
 K2_BIG = 2**20  # fused_raw_loops' shape on the DU path: K=1, S=D=2**20
 K3_S = K3_D = 2**20
@@ -263,9 +286,18 @@ def _wave_bytes(writes: np.ndarray) -> int:
     return writes.size * (4 + 1 + 8 + 8) + int(writes.sum()) * (8 + 8)
 
 
+def _wave_sector_bytes(m: int, writes: np.ndarray) -> int:
+    """``_wave_bytes`` with each random gather and scatter charged a whole
+    32-byte sector where the image (``m`` words) exceeds L2: the DRAM
+    traffic of the same work."""
+    if m * 8 <= L2_BYTES:
+        return _wave_bytes(writes)
+    return writes.size * (4 + 1 + 32 + 8) + int(writes.sum()) * (8 + 32)
+
+
 def _sync_us(grid: int) -> float:
-    """Microseconds one grid barrier of the wave kernel costs at
-    ``grid`` blocks, measured apart from memory traffic: the barrier
+    """Microseconds one grid barrier of the wave kernel's wide path costs
+    at ``grid`` blocks, measured apart from memory traffic: the barrier
     kernel's time at SYNC_STEPS[1] steps less its time at SYNC_STEPS[0],
     over the extra barriers (two per step)."""
     from repro_torch.kernels.wave_exec import kernel
@@ -273,6 +305,62 @@ def _sync_us(grid: int) -> float:
     lo, hi = (_time_ms(lambda n=n: kernel.grid_sync(grid, n), 10)
               for n in SYNC_STEPS)
     return (hi - lo) * 1e3 / (2 * (SYNC_STEPS[1] - SYNC_STEPS[0]))
+
+
+def _resident_sync_us(kernel, threads: int) -> float:
+    """Microseconds one block barrier of the wave kernel's resident path
+    costs in a block of ``threads`` threads, measured as ``_sync_us``
+    is."""
+    lo, hi = (_time_ms(lambda n=n: kernel.resident_sync(threads, n), 10)
+              for n in SYNC_STEPS)
+    return (hi - lo) * 1e3 / (2 * (SYNC_STEPS[1] - SYNC_STEPS[0]))
+
+
+def time_wave_case(kernel, wave_loop_ref, random_tables, seed, m, s, w, *,
+                   plain=True):
+    """K1 (``kernel``, this tree's or another's) against ``wave_loop_ref``
+    on seeded tables, bit for bit, then the whole call timed
+    (``_call_times``) beside its bounds: bytes, sector-aware, and each
+    with the path's barriers (two a step, each timed alone at this
+    launch's blocks). Returns a result dict naming the path."""
+    dev = torch.device("cuda")
+    mem, addrs, writes, svals = random_tables(np.random.default_rng(seed),
+                                              m, s, w)
+    mem_d = torch.from_numpy(mem).to(dev)
+    tabs = [torch.from_numpy(t).to(dev) for t in (addrs, writes, svals)]
+    k_mem, k_vals = kernel.wave_loop(mem_d.clone(), *tabs)
+    r_mem, r_vals = wave_loop_ref(mem_d.clone(), *tabs)
+    torch.cuda.synchronize()
+    if not (torch.equal(k_mem, r_mem) and torch.equal(k_vals, r_vals)):
+        raise AssertionError(f"wave kernel != plain version at M={m} S={s} "
+                             f"W={w}")
+    err = max((k_mem - r_mem).abs().max().item(),
+              (k_vals - r_vals).abs().max().item())
+    del k_mem, k_vals, r_mem, r_vals
+    out = {"M": m, "S": s, "W": w, "max_abs_err": float(err)}
+    if hasattr(kernel, "launch_path"):
+        path = kernel.launch_path(m, w, dev)
+        out.update(path=path.kind, blocks=path.blocks, threads=path.threads,
+                   lanes=path.lanes)
+    else:  # a tree from before the resident path
+        out.update(path="wide", blocks=kernel.launch_grid(w, dev))
+    if out["path"] == "resident":
+        out["sync_us"] = _resident_sync_us(kernel, out["threads"])
+    else:
+        out["sync_us"] = _sync_us(out["blocks"])
+    scratch = mem_d.clone()
+    out.update(_call_times(lambda: kernel.wave_loop(scratch, *tabs),
+                           _wave_bytes(writes) / HBM_BYTES_PER_S * 1e3))
+    syncs_ms = 2 * s * out["sync_us"] * 1e-3
+    out["sector_bound_ms"] = (_wave_sector_bytes(m, writes)
+                              / HBM_BYTES_PER_S * 1e3)
+    out["bound_with_syncs_ms"] = out["bound_ms"] + syncs_ms
+    out["sector_bound_with_syncs_ms"] = out["sector_bound_ms"] + syncs_ms
+    out["syncs_bound_share"] = (out["sector_bound_with_syncs_ms"]
+                                / out["device_ms"])
+    if plain:
+        out["plain_ms"] = _time_ms(lambda: wave_loop_ref(scratch, *tabs), 5)
+    return out
 
 
 def _time_ms(fn, reps: int, trials: int = 1) -> float:
@@ -295,43 +383,12 @@ def _time_ms(fn, reps: int, trials: int = 1) -> float:
     return float(np.median(runs))
 
 
-def check_wave_kernel(seed, m, s, w, *, timed):
-    """The wave kernel against ``wave_loop_ref`` on seeded tables; with
-    ``timed``, both timed on the same inputs. Returns a result dict."""
+def check_wave_kernel(seed, m, s, w):
+    """This tree's K1 through ``time_wave_case``."""
     from repro_torch.kernels.wave_exec import kernel
     from repro_torch.kernels.wave_exec.ref import random_tables, wave_loop_ref
 
-    dev = torch.device("cuda")
-    mem, addrs, writes, svals = random_tables(
-        np.random.default_rng(seed), m, s, w
-    )
-    mem_d = torch.from_numpy(mem).to(dev)
-    tabs = [torch.from_numpy(t).to(dev) for t in (addrs, writes, svals)]
-    k_mem, k_vals = kernel.wave_loop(mem_d.clone(), *tabs)
-    r_mem, r_vals = wave_loop_ref(mem_d.clone(), *tabs)
-    torch.cuda.synchronize()
-    if not (torch.equal(k_mem, r_mem) and torch.equal(k_vals, r_vals)):
-        raise AssertionError(
-            f"wave kernel != plain version at M={m} S={s} W={w}"
-        )
-    err = max(
-        (k_mem - r_mem).abs().max().item(),
-        (k_vals - r_vals).abs().max().item(),
-    )
-    out = {"M": m, "S": s, "W": w, "max_abs_err": float(err)}
-    if timed:
-        scratch = mem_d.clone()
-        out["ms"] = _time_ms(lambda: kernel.wave_loop(scratch, *tabs), 20)
-        out["plain_ms"] = _time_ms(lambda: wave_loop_ref(scratch, *tabs), 5)
-        out["bound_ms"] = _wave_bytes(writes) / HBM_BYTES_PER_S * 1e3
-        # the bytes bound plus the design's two grid barriers per step,
-        # each timed alone at this launch's grid
-        out["grid"] = kernel.launch_grid(w, dev)
-        out["sync_us"] = _sync_us(out["grid"])
-        out["bound_with_syncs_ms"] = (
-            out["bound_ms"] + 2 * s * out["sync_us"] * 1e-3
-        )
-    return out
+    return time_wave_case(kernel, wave_loop_ref, random_tables, seed, m, s, w)
 
 
 def _bits_equal(got: dict, want: dict) -> bool:
@@ -466,13 +523,32 @@ def k3_inputs(seed):
     return (src.astype(np.int32), val, valid, dst.astype(np.int32), memory)
 
 
-def check_forward_kernel():
-    """K3 against ``fused_stream_ref`` on the card, bit for bit on the
-    float64 words, both timed beside the bytes bound."""
-    from repro_torch.kernels.fused_stream import kernel
-    from repro_torch.kernels.fused_stream.ops import min_lookback
-    from repro_torch.kernels.fused_stream.ref import fused_stream_ref
+def _forward_bytes(s, d, m, lb, hits, word):
+    """K3's bytes bound and its sector-aware bound. Bytes: per consumer
+    its frontier and address (4 + 4), value and hit out (word + 1); each
+    producer's address, valid bit and value (4 + 4 + word) at most once;
+    per miss the memory word (word). Sector-aware: where an array that
+    is read at random exceeds L2, each random read of it costs a 32-byte
+    sector: the memory gather of a miss, and (for producers past L2) the
+    window's address, valid bit and the forwarded value."""
+    consumers = d * (4 + 4 + word + 1)
+    producers = min(s, d * lb) * (4 + 4 + word)
+    misses = d - hits
+    nbytes = consumers + producers + misses * word
+    sectors = consumers + (misses * (32 if m * word > L2_BYTES else word))
+    if s * (4 + 4 + word) > L2_BYTES:
+        sectors += d * lb * (32 + 32) + hits * 32
+    else:
+        sectors += producers
+    return (nbytes / HBM_BYTES_PER_S * 1e3, sectors / HBM_BYTES_PER_S * 1e3)
 
+
+def time_forward_case(kernel, fused_stream_ref, min_lookback, *,
+                      plain=True):
+    """K3 (``kernel``, this tree's or another's) against
+    ``fused_stream_ref`` on the card at S=D=2**20 over a float64 memory of
+    2**24 + 1 words, bit for bit on the float64 words, the whole call
+    timed (``_call_times``) beside both bounds."""
     src, val, valid, dst, memory = (torch.from_numpy(x).cuda()
                                     for x in k3_inputs(6))
     frontier = torch.searchsorted(src, dst, right=True, out_int32=True)
@@ -487,22 +563,30 @@ def check_forward_kernel():
     hits = int(got_h.sum().item())
     if not 0 < hits < K3_D:
         raise AssertionError(f"degenerate forwarding case: {hits} hits")
-    # the function's bytes: per consumer its frontier and address (8),
-    # its value and hit out (8 + 1); each producer's address, valid bit
-    # and value (4 + 4 + 8) at most once; one 32-byte sector of memory
-    # per miss (a random gather)
-    nbytes = (K3_D * (4 + 4 + 8 + 1) + min(K3_S, K3_D * lb) * 16
-              + (K3_D - hits) * 32)
-    return {
+    bound_ms, sector_ms = _forward_bytes(K3_S, K3_D, K3_M, lb, hits, 8)
+    out = {
         "S": K3_S, "D": K3_D, "M": K3_M, "dtype": "float64",
         "lookback": lb, "hits": hits,
         "invalid": int((valid == 0).sum().item()),
         "max_abs_err": float((got_v - want_v).abs().max().item()),
-        "ms": _time_ms(lambda: kernel.fused_stream(*args, lookback=lb), REPS),
-        "plain_ms": _time_ms(lambda: fused_stream_ref(*args, lookback=lb),
-                             REPS),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "sector_bound_ms": sector_ms,
+        **_call_times(lambda: kernel.fused_stream(*args, lookback=lb),
+                      bound_ms),
     }
+    out["sector_bound_share"] = sector_ms / out["device_ms"]
+    if plain:
+        out["plain_ms"] = _time_ms(
+            lambda: fused_stream_ref(*args, lookback=lb), REPS)
+    return out
+
+
+def check_forward_kernel():
+    """This tree's K3 through ``time_forward_case``."""
+    from repro_torch.kernels.fused_stream import kernel
+    from repro_torch.kernels.fused_stream.ops import min_lookback
+    from repro_torch.kernels.fused_stream.ref import fused_stream_ref
+
+    return time_forward_case(kernel, fused_stream_ref, min_lookback)
 
 
 def k4_inputs(seed):
@@ -1509,11 +1593,11 @@ def stream_oracle(name, arrays, params):
 
 def run_spec_path(device="cuda"):
     """The four speculative programs at 8x through ``execute`` on the
-    card, bit-identical to both oracles. Returns the rows and the wave
-    segments the runs report."""
+    card, bit-identical to both oracles. Returns the rows and the (M, S,
+    W) of every wave segment the runs report."""
     from repro_torch.core import executor, loopir as ir, programs
 
-    rows, segments = [], 0
+    rows, shapes = [], []
     for name in programs.SPEC_KERNELS:
         prog, arrays, params = programs.get(name).make(SPEC_SCALES_8X[name])
         res = executor.execute(prog, arrays, params, speculation="auto",
@@ -1531,18 +1615,18 @@ def run_spec_path(device="cuda"):
         }
         print(json.dumps(row), flush=True)
         rows.append(row)
-        segments += run.n_segments
-    return rows, segments
+        shapes.extend((res.plan.mem_size + 1, s, w) for s, w in run.segments)
+    return rows, shapes
 
 
 def run_stream_path(device="cuda"):
     """The three streaming programs at their default scales through
     ``execute`` at FIFO depths 1, 2 and 4, bit-identical to both oracles,
-    wave counts non-increasing in depth. Returns the rows and the wave
-    segments the runs report."""
+    wave counts non-increasing in depth. Returns the rows and the (M, S,
+    W) of every wave segment the runs report."""
     from repro_torch.core import executor, loopir as ir, programs
 
-    rows, segments = [], 0
+    rows, shapes = [], []
     for name in programs.STREAM_KERNELS:
         bench = programs.get(name)
         prog, arrays, params = bench.make(bench.default_scale)
@@ -1556,7 +1640,8 @@ def run_stream_path(device="cuda"):
                     and _bits_equal(res.arrays, hand)):
                 raise AssertionError(f"{name}@{depth}: differs from an oracle")
             waves.append(res.stats.n_waves)
-            segments += res.run.n_segments
+            shapes.extend((res.plan.mem_size + 1, s, w)
+                          for s, w in res.run.segments)
             row = {
                 "program": name, "scale": bench.default_scale,
                 "fifo_depth": depth, "n_requests": res.stats.n_requests,
@@ -1568,7 +1653,7 @@ def run_stream_path(device="cuda"):
             rows.append(row)
         if waves != sorted(waves, reverse=True):
             raise AssertionError(f"{name}: waves grow with depth: {waves}")
-    return rows, segments
+    return rows, shapes
 
 
 def run_spec_simulate():
@@ -1635,6 +1720,31 @@ def run_simulate():
 
 def _hmean(xs):
     return len(xs) / sum(1.0 / x for x in xs)
+
+
+def _zero_wave_counts(kernel):
+    kernel.wave_loop.launches = 0
+    kernel.wave_loop.wide_launches = 0
+
+
+def _wave_launches(kernel, what: str, shapes) -> dict:
+    """The wave kernel's launches since ``_zero_wave_counts``, split by
+    path. ``shapes`` holds the (M, S, W) of every segment the runs
+    report: one launch each, the ones whose image fits one block's
+    shared memory and whose lanes fit its threads on the resident path,
+    every other on the wide path."""
+    lim = kernel.limits(torch.cuda.current_device())
+    one_block = sum(
+        m <= lim.words_per_block
+        and w <= kernel.RESIDENT_THREADS * kernel.RESIDENT_LANES[-1]
+        for m, _, w in shapes)
+    got = {"launches": kernel.wave_loop.launches,
+           "wide": kernel.wave_loop.wide_launches}
+    want = {"launches": len(shapes), "wide": len(shapes) - one_block}
+    if got != want or got["launches"] == 0:
+        raise AssertionError(f"{what}: wave launches {got}, its segments "
+                             f"call for {want}")
+    return got
 
 
 def run_main_path():
@@ -1719,13 +1829,12 @@ def main() -> int:
             print(log.read_text().strip())
 
     # 3. kernels against their plain versions (launches here not counted)
-    big = check_wave_kernel(0, BIG_M, BIG_S, BIG_W, timed=True)
-    print("wave kernel:", json.dumps(big), flush=True)
-    small = check_wave_kernel(1, 9, 1, 8, timed=True)
+    waves = {}
+    for seed, (name, (m, s, w)) in enumerate(K1_SHAPES.items()):
+        waves[name] = check_wave_kernel(20 + seed, m, s, w)
+        print(f"wave kernel, {name}:", json.dumps(waves[name]), flush=True)
+    small = check_wave_kernel(1, 9, 1, 8)
     print("wave kernel, one 8-lane step:", json.dumps(small), flush=True)
-    # an image that stays in L2: bytes matter less, barriers more
-    l2 = check_wave_kernel(3, L2_M, L2_S, L2_W, timed=True)
-    print("wave kernel, L2-resident image:", json.dumps(l2), flush=True)
     hz = check_hazard_kernel(4, K2_K, K2_S, K2_D, unsorted_row=False)
     print("hazard kernel:", json.dumps(hz), flush=True)
     hz_big = check_hazard_kernel(11, 1, K2_BIG, K2_BIG, unsorted_row=False,
@@ -1758,18 +1867,21 @@ def main() -> int:
     print("grouped matmul kernel:", json.dumps(gm), flush=True)
     torch.cuda.empty_cache()
 
-    # 4. main path, with the wave kernel's count read around it alone
-    kernel.wave_loop.launches = 0
+    # 4. main path, with the wave kernel's counts read around it alone
+    _zero_wave_counts(kernel)
     rows, shapes, plans = run_main_path()
-    launches = kernel.wave_loop.launches
+    main_split = _wave_launches(kernel, "main path", shapes)
+    launches = main_split["launches"]
     expected = sum(r["n_segments"] for r in rows)
-    if launches == 0 or launches != expected:
+    if launches != expected:
         raise AssertionError(
             f"main path launched the wave kernel {launches} times, "
             f"its runs report {expected} segments"
         )
+    print("main path:", json.dumps({"wave_launches": main_split}),
+          flush=True)
     m, s, w = max(shapes, key=lambda t: t[1] * t[2])
-    main_shape = check_wave_kernel(2, m, s, w, timed=True)
+    main_shape = check_wave_kernel(2, m, s, w)
     print("wave kernel at the main path's largest launch:",
           json.dumps(main_shape), flush=True)
 
@@ -1804,28 +1916,24 @@ def main() -> int:
         )
 
     # 7. speculation path, with the wave kernel's count read around it
-    kernel.wave_loop.launches = 0
+    _zero_wave_counts(kernel)
     t0 = time.perf_counter()
-    spec_rows, spec_segments = run_spec_path()
-    spec_launches = kernel.wave_loop.launches
+    spec_rows, spec_shapes = run_spec_path()
+    spec_split = _wave_launches(kernel, "speculation path", spec_shapes)
+    spec_launches = spec_split["launches"]
     print("speculation path:", json.dumps({
-        "wave_launches": spec_launches, "host_s": time.perf_counter() - t0,
+        "wave_launches": spec_split, "host_s": time.perf_counter() - t0,
     }), flush=True)
-    if spec_launches == 0 or spec_launches != spec_segments:
-        raise AssertionError(f"speculation path: {spec_launches} wave "
-                             f"launches for {spec_segments} segments")
 
     # 8. streaming path, with the wave kernel's count read around it
-    kernel.wave_loop.launches = 0
+    _zero_wave_counts(kernel)
     t0 = time.perf_counter()
-    stream_rows, stream_segments = run_stream_path()
-    stream_launches = kernel.wave_loop.launches
+    stream_rows, stream_shapes = run_stream_path()
+    stream_split = _wave_launches(kernel, "streaming path", stream_shapes)
+    stream_launches = stream_split["launches"]
     print("streaming path:", json.dumps({
-        "wave_launches": stream_launches, "host_s": time.perf_counter() - t0,
+        "wave_launches": stream_split, "host_s": time.perf_counter() - t0,
     }), flush=True)
-    if stream_launches == 0 or stream_launches != stream_segments:
-        raise AssertionError(f"streaming path: {stream_launches} wave "
-                             f"launches for {stream_segments} segments")
 
     # 9. simulate, with the wave kernel's count read around it
     kernel.wave_loop.launches = 0
@@ -1852,22 +1960,33 @@ def main() -> int:
     print("MoE path:", json.dumps(moe), flush=True)
 
     # 11. result lines
+    big = waves["kernel_phase"]
     wave_entry = {
         "name": "wave_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/wave_exec/csrc/wave_exec.cu",
         "replaces": "src/repro/kernels/wave_exec/kernel.py:61",
         "launches": launches,
+        "launches_on_paths": {"speculation": spec_launches,
+                              "streaming": stream_launches},
+        "wide_launches_on_paths": {"main": main_split["wide"],
+                                   "speculation": spec_split["wide"],
+                                   "streaming": stream_split["wide"]},
         "tolerance": "bit-exact (torch.equal on image and gathered words)",
         "max_abs_err": max(c["max_abs_err"]
-                           for c in (big, small, l2, main_shape)),
+                           for c in (*waves.values(), small, main_shape)),
         "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "device_ms": big["device_ms"], "host_us": big["host_us"],
         "bound_ms": big["bound_ms"], "bound_by": "bytes",
+        "sector_bound_ms": big["sector_bound_ms"],
         "bound_with_syncs_ms": big["bound_with_syncs_ms"],
-        "sync_us": big["sync_us"], "grid": big["grid"],
+        "sync_us": big["sync_us"], "path": big["path"],
         "library_ms": None,
+        "library": "none: no single torch call gathers against the "
+                   "pre-step image, then scatters",
         "shape": {"M": BIG_M, "S": BIG_S, "W": BIG_W},
+        "shapes": {k: v for k, v in waves.items() if k != "kernel_phase"},
         "main_path_largest_launch": main_shape,
-        "one_8_lane_step": small, "l2_resident": l2,
+        "one_8_lane_step": small,
     }
     hazard_entry = {
         "name": "hazard_frontier", "route": "cuda",
@@ -1896,7 +2015,10 @@ def main() -> int:
         "tolerance": "bit-exact (torch.equal on float64 words and hits)",
         "max_abs_err": fw["max_abs_err"],
         "ms": fw["ms"], "plain_ms": fw["plain_ms"],
+        "device_ms": fw["device_ms"], "host_us": fw["host_us"],
         "bound_ms": fw["bound_ms"], "bound_by": "bytes",
+        "sector_bound_ms": fw["sector_bound_ms"],
+        "sector_bound_share": fw["sector_bound_share"],
         "library_ms": None,
         "library": "none: no single torch call forwards",
         "shape": {k: fw[k] for k in ("S", "D", "M", "lookback", "hits")},

@@ -14,27 +14,64 @@
 // producer addresses keep equal-address producers adjacent, which is why a
 // bounded lookback is exact (ops.min_lookback gives the tight depth).
 //
-// Design. One thread per consumer; `lookback` is a run-time loop that stops
-// at the first hit or at the first negative index. A consumer reads memory
-// only on a miss. Values move as whole 4- or 8-byte words (the wrapper picks
+// Design. The candidates clip to [0, S-1], so they are the one range
+// [lo, hi] = [min(max(f - lookback, 0), hi), min(f - 1, S - 1)] (empty
+// where f < 1), and the youngest landed match is the highest index in it
+// with src_addr == a and src_valid == 1. One thread a consumer: (1) its
+// window's addresses as the aligned 16-byte groups that cover [lo, hi]
+// (two for lookback <= 5, three up to 9, more in batches of three), all
+// in flight together; (2) the compares, youngest first, reading a valid
+// bit only where the address matches; (3) its value, from src_val for a
+// hit or from memory for a miss. A miss thus waits for three round trips
+// (frontier, window, memory) instead of one per candidate. The
+// consumer's frontier, address, memory word and outputs carry streaming
+// cache hints (__ldcs/__stcs), so that they do not evict the producers
+// from L2. Values move as whole 4- or 8-byte words (the wrapper picks
 // the width from the dtype), so f32 matches the TPU kernel bit for bit and
 // f64 forwards the plan's float64 values exactly, NaN payloads included.
+// (Measured on an H100 at S=D=2**20, lookback 5: the valid bits loaded
+// with the addresses, four or two consumers a thread with 16-byte
+// frontier and address loads, or the memory gather started with the
+// window were each slower.)
 //
 // Bound. Memory: per consumer its frontier and address (8 B), its value and
-// hit out (9 B for f64), the producers its lookback window reads, and one
-// 32-byte DRAM sector for the random memory gather of a miss. There is no
-// arithmetic to speak of; the gathers are uncoalesced, so sectors, not
-// bytes, are what the card moves.
+// hit out (9 B for f64), the producers its lookback window reads, and the
+// memory word of a miss. The window reads and the memory gather are
+// random, so where their array exceeds L2 each costs a 32-byte DRAM
+// sector, not the bytes it uses: at the kernel phase's shape the memory
+// (128 MB) does and the producers (16 MB) do not.
 //
 // Plain C interface (no PyTorch headers): the wrapper in kernel.py passes
 // data_ptr()s and the current stream through ctypes.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxGroups = 3;  // 16-byte window groups a consumer loads at once
 
+// Words 4b .. 4b + 3 of src_addr (s words; 0 past its end): one 16-byte
+// load where the table is aligned and the group whole.
+__device__ __forceinline__ int4 load_group(const int* __restrict__ p,
+                                           long long b, int s, bool aligned) {
+  const long long i = 4 * b;
+  if (aligned && i + 3 < s) return __ldg(reinterpret_cast<const int4*>(p) + b);
+  int4 g;
+  g.x = i < s ? __ldg(p + i) : 0;
+  g.y = i + 1 < s ? __ldg(p + i + 1) : 0;
+  g.z = i + 2 < s ? __ldg(p + i + 2) : 0;
+  g.w = i + 3 < s ? __ldg(p + i + 3) : 0;
+  return g;
+}
+
+__device__ __forceinline__ int lane_of(const int4& g, int l) {
+  return l == 0 ? g.x : (l == 1 ? g.y : (l == 2 ? g.z : g.w));
+}
+
+// One consumer a thread; kMaxGroups 16-byte groups of its window in one
+// batch (the groups a window does not span are skipped).
 template <typename Word>
 __global__ void __launch_bounds__(kThreads)
 fused_stream_kernel(const int* __restrict__ src_addr,
@@ -44,31 +81,48 @@ fused_stream_kernel(const int* __restrict__ src_addr,
                     const int* __restrict__ dst_addr,
                     const Word* __restrict__ memory, Word* __restrict__ out,
                     unsigned char* __restrict__ hits, int s, int d,
-                    long long m, int lookback) {
+                    long long m, int lookback, bool tables_aligned) {
   const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (j >= d) return;
-  const long long f = frontier[j];
-  const int a = dst_addr[j];
-  bool found = false;
-  Word val = 0;
-  if (s > 0) {
-    for (int lb = 0; lb < lookback; ++lb) {
-      const long long idx = f - 1 - lb;
-      if (idx < 0) break;  // deeper candidates are more negative still
-      const long long c = idx >= s ? (long long)s - 1 : idx;
-      if (src_addr[c] == a && (src_valid == nullptr || src_valid[c] == 1)) {
-        val = src_val[c];
-        found = true;
-        break;
+  // the consumer's own words are read and written once: streaming hints
+  // keep them (and the memory gather below) from evicting the producers
+  const int f = __ldcs(frontier + j);
+  const int a = __ldcs(dst_addr + j);
+  // the window as [lo, hi]; hi < 0 means no candidate
+  const long long hi = min((long long)f - 1, (long long)s - 1);
+  const long long lo = min(max((long long)f - lookback, 0LL), hi);
+  long long win = -1;  // the forwarding producer, or -1 (miss)
+  // the most groups a window spans
+  const int groups = (lookback + 6) / 4;
+  for (int g0 = 0; g0 < groups && hi >= 0 && win < 0; g0 += kMaxGroups) {
+    // (1) the batch's groups of addresses, all in flight together
+    int4 ga[kMaxGroups];
+#pragma unroll
+    for (int t = 0; t < kMaxGroups; ++t) {
+      const long long b = (hi >> 2) - g0 - t;
+      ga[t] = b >= (lo >> 2) ? load_group(src_addr, b, s, tables_aligned)
+                             : make_int4(0, 0, 0, 0);
+    }
+    // (2) the youngest match in [lo, hi] that landed: a valid bit is read
+    // for a matching address only
+#pragma unroll
+    for (int t = 0; t < kMaxGroups; ++t) {
+#pragma unroll
+      for (int l = 3; l >= 0; --l) {
+        const long long i = 4 * ((hi >> 2) - g0 - t) + l;
+        if (win < 0 && i >= lo && i <= hi && lane_of(ga[t], l) == a &&
+            (src_valid == nullptr || __ldg(src_valid + i) == 1)) {
+          win = i;
+        }
       }
     }
   }
-  if (!found) {
-    const long long at = a < 0 ? 0 : (a >= m ? m - 1 : (long long)a);
-    val = memory[at];
-  }
-  out[j] = val;
-  hits[j] = found ? 1 : 0;
+  // (3) the forwarded producer's value, else the memory word
+  const Word v =
+      win >= 0 ? __ldg(src_val + win)
+               : __ldcs(memory + (a < 0 ? 0 : (a >= m ? m - 1 : (long long)a)));
+  __stcs(out + j, v);
+  __stcs(hits + j, (unsigned char)(win >= 0));
 }
 
 template <typename Word>
@@ -76,11 +130,12 @@ int launch(const int* src_addr, const void* src_val, const int* src_valid,
            const int* frontier, const int* dst_addr, const void* memory,
            void* out, unsigned char* hits, int s, int d, long long m,
            int lookback, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((d + kThreads - 1) / kThreads);
+  const unsigned grid = (unsigned)(((long long)d + kThreads - 1) / kThreads);
+  const bool tables_aligned = ((uintptr_t)src_addr % 16) == 0;
   fused_stream_kernel<Word><<<grid, kThreads, 0, stream>>>(
       src_addr, static_cast<const Word*>(src_val), src_valid, frontier,
       dst_addr, static_cast<const Word*>(memory), static_cast<Word*>(out),
-      hits, s, d, m, lookback);
+      hits, s, d, m, lookback, tables_aligned);
   return (int)cudaGetLastError();
 }
 
@@ -103,9 +158,10 @@ int fused_stream_launch(const int* src_addr, const void* src_val,
                                 lookback, (cudaStream_t)stream);
   }
   if (word_bytes == 8) {
-    return launch<unsigned long long>(src_addr, src_val, src_valid, frontier,
-                                      dst_addr, memory, out, hits, s, d, m,
-                                      lookback, (cudaStream_t)stream);
+    return launch<unsigned long long>(src_addr, src_val, src_valid,
+                                      frontier, dst_addr, memory, out, hits,
+                                      s, d, m, lookback,
+                                      (cudaStream_t)stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, device
 from repro_torch.kernels.fused_stream.ref import fused_stream_ref
 
 THREADS = 256  # consumers per block, kThreads in csrc/fused_stream.cu
@@ -49,6 +49,14 @@ def _lib() -> ctypes.CDLL:
     lib.fused_stream_error_string.argtypes = [i]
     lib.fused_stream_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _int32(t):
+    """``t`` as a contiguous int32 tensor, copied only where it is not
+    one."""
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def _check(src_addr, src_val, frontier, dst_addr, memory, src_valid,
@@ -108,22 +116,16 @@ def fused_stream(src_addr, src_val, frontier, dst_addr, memory,
     hits = torch.empty(d, dtype=torch.bool, device=dev)
     if d == 0:
         return out, hits
-    src = src_addr.to(torch.int32).contiguous()
-    vals = src_val.contiguous()
-    valid = (None if src_valid is None
-             else src_valid.to(torch.int32).contiguous())
-    f = frontier.to(torch.int32).contiguous()
-    a = dst_addr.to(torch.int32).contiguous()
-    mem = memory.contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().fused_stream_launch(
-            src.data_ptr(), vals.data_ptr(),
-            None if valid is None else valid.data_ptr(),
-            f.data_ptr(), a.data_ptr(), mem.data_ptr(), out.data_ptr(),
-            hits.data_ptr(), s, d, mem.shape[0], int(lookback),
-            mem.element_size(), stream,
-        )
+    # locals keep any converted copy alive until the launch is queued
+    src, f, a = _int32(src_addr), _int32(frontier), _int32(dst_addr)
+    vals, mem = src_val.contiguous(), memory.contiguous()
+    valid = None if src_valid is None else _int32(src_valid)
+    rc = device.launch(
+        dev, _lib().fused_stream_launch, src.data_ptr(), vals.data_ptr(),
+        None if valid is None else valid.data_ptr(), f.data_ptr(),
+        a.data_ptr(), mem.data_ptr(), out.data_ptr(), hits.data_ptr(), s, d,
+        mem.shape[0], int(lookback), mem.element_size(),
+    )
     if rc != 0:
         raise RuntimeError(
             "fused_stream kernel launch failed: "

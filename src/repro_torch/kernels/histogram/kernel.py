@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, device
 from repro_torch.kernels.histogram.ref import histogram_ref
 
 MAX_SHARED_BINS = 56 * 1024  # kMaxSharedBins in csrc/histogram.cu
@@ -70,12 +70,10 @@ def histogram(data, *, n_bins: int, block: int = 512):
         return out
     d = data.to(torch.int32).contiguous()
     counts = torch.empty(n_bins, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().histogram_launch(
-            d.data_ptr(), d.shape[0], n_bins, block, counts.data_ptr(),
-            out.data_ptr(), stream,
-        )
+    rc = device.launch(
+        dev, _lib().histogram_launch, d.data_ptr(), d.shape[0], n_bins,
+        block, counts.data_ptr(), out.data_ptr(),
+    )
     if rc != 0:
         raise RuntimeError(
             "histogram kernel launch failed: "

@@ -14,10 +14,11 @@ two-phase:
               oracle reference streams, and the per-step
               (addr, write, sval) tables are recorded,
     device  — the recorded tables are padded to power-of-two lane
-              buckets, stacked into segments of equal width, uploaded,
-              and each segment runs as **one** launch of the
-              ``wave_loop`` kernel, chaining the flat int64 image on the
-              card. Final arrays are unpacked from the device image; under
+              buckets and packed into one table each for the whole
+              plan (``pack_steps``), uploaded once; each segment of
+              equal width runs as **one** launch
+              of the ``wave_loop`` kernel on views of them, chaining the
+              flat int64 image on the card. Final arrays are unpacked from the device image; under
               ``check=True`` the per-step device gathers and the final
               image are checked bit-exact against the resolve phase.
 
@@ -81,6 +82,47 @@ def _bucket(n: int) -> int:
     return b
 
 
+@dataclasses.dataclass
+class StepTables:
+    """Every step's (addr, write, sval) rows of one plan, each padded to
+    its lane bucket and packed back to back: segment k (steps ``s0`` to
+    ``s1`` of equal width) is the ``(s1 - s0, width)`` block at
+    ``offsets[k]``. Pad lanes target the scratch word and never write."""
+
+    addrs: np.ndarray  # int32, all rows concatenated
+    writes: np.ndarray  # bool
+    svals: np.ndarray  # float64
+    widths: list  # each step's lane bucket
+    segments: list  # (first step, end step) of each run of equal width
+    offsets: list  # each segment's first element in the packed rows
+
+
+def pack_steps(steps, scratch: int) -> StepTables:
+    """Pack the recorded ``(addr, write, sval)`` of each step into one
+    table each, allocated once and padded by its fill (the device phase
+    uploads each table once per plan and launches on views of it). Each
+    row goes in by a slice assignment: on the plans' rows, mostly whole
+    buckets, that is cheaper than building index or mask arrays."""
+    widths = [_bucket(len(a)) for a, _, _ in steps]
+    segments: list[tuple[int, int]] = []
+    for s, wd in enumerate(widths):
+        if segments and widths[segments[-1][0]] == wd:
+            segments[-1] = (segments[-1][0], s + 1)
+        else:
+            segments.append((s, s + 1))
+    row_at = np.concatenate([[0], np.cumsum(widths, dtype=np.int64)])
+    total = int(row_at[-1])
+    addrs = np.full(total, scratch, dtype=np.int32)
+    writes = np.zeros(total, dtype=bool)
+    svals = np.zeros(total, dtype=np.float64)
+    for (a, w, v), at in zip(steps, row_at.tolist()):
+        addrs[at:at + len(a)] = a
+        writes[at:at + len(a)] = w
+        svals[at:at + len(a)] = v
+    return StepTables(addrs, writes, svals, widths, segments,
+                      [int(row_at[s0]) for s0, _ in segments])
+
+
 def _run(
     plan: execlib.WavePlan,
     arrays: dict[str, np.ndarray],
@@ -124,30 +166,20 @@ def _run(
 
     # --- device phase: segments of equal-width steps, one launch each ----
     t0 = time.perf_counter()
+    tables = pack_steps([r[:3] for r in rec], scratch)
     mem_dev = torch.from_numpy(mem_f64.view(np.int64)).to(dev)
-    widths = [_bucket(len(a)) for a, _, _, _ in rec]
-    segments: list[tuple[int, int]] = []  # (start step, end step)
-    for s, wd in enumerate(widths):
-        if segments and widths[segments[-1][0]] == wd:
-            segments[-1] = (segments[-1][0], s + 1)
-        else:
-            segments.append((s, s + 1))
+    addrs, writes, svals = (
+        torch.from_numpy(t).to(dev)
+        for t in (tables.addrs, tables.writes, tables.svals.view(np.int64))
+    )
+    segments = tables.segments
     seg_vals = []
-    for s0, s1 in segments:
-        wd = widths[s0]
-        ns = s1 - s0
-        addrs = np.full((ns, wd), scratch, dtype=np.int32)
-        writes = np.zeros((ns, wd), dtype=bool)
-        svals = np.zeros((ns, wd), dtype=np.float64)
-        for j in range(ns):
-            a, w, v, _ = rec[s0 + j]
-            addrs[j, :len(a)] = a
-            writes[j, :len(a)] = w
-            svals[j, :len(a)] = v
+    for (s0, s1), at in zip(segments, tables.offsets):
+        shape = (s1 - s0, tables.widths[s0])
+        n = shape[0] * shape[1]
         _, vals = wave_loop(
-            mem_dev, torch.from_numpy(addrs).to(dev),
-            torch.from_numpy(writes).to(dev),
-            torch.from_numpy(svals.view(np.int64)).to(dev),
+            mem_dev, addrs[at:at + n].view(shape),
+            writes[at:at + n].view(shape), svals[at:at + n].view(shape),
         )
         seg_vals.append(vals)
     if dev.type == "cuda":
@@ -175,7 +207,7 @@ def _run(
         arrays=out, stats=plan.stats, n_steps=steps,
         elapsed=t_resolve + t_device, complete=complete,
         resolve_s=t_resolve, device_s=t_device, n_segments=len(segments),
-        segments=[(s1 - s0, widths[s0]) for s0, s1 in segments],
+        segments=[(s1 - s0, tables.widths[s0]) for s0, s1 in segments],
     )
 
 

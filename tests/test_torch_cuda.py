@@ -93,6 +93,147 @@ def test_launch_grid_and_grid_sync(cuda):
     assert kernel.wave_loop.launches == before
 
 
+def _limits(cuda):
+    return kernel.limits(torch.device(cuda).index or 0)
+
+
+def _wave_case(cuda, seed, m, s, w):
+    """Seeded tables (``random_tables``: WAR aliasing, clipped gathers,
+    NaN payloads) on the card; below 8 lanes every lane loads, lane 0
+    out of range, and the last lane writes."""
+    rng = np.random.default_rng(seed)
+    if w >= 8:
+        mem, addrs, writes, svals = random_tables(rng, m, s, w)
+    else:
+        mem = rng.integers(-2**62, 2**62, size=m, dtype=np.int64)
+        addrs = rng.integers(0, m - 1, size=(s, w)).astype(np.int32)
+        addrs[:, 0] = m + 7
+        writes = np.zeros((s, w), dtype=bool)
+        writes[:, -1] = True
+        addrs[:, -1] = rng.permutation(m - 1)[:s] if s < m else 0
+        svals = rng.integers(-2**62, 2**62, size=(s, w), dtype=np.int64)
+    return (torch.from_numpy(mem).to(cuda),
+            *(torch.from_numpy(t).to(cuda) for t in (addrs, writes, svals)))
+
+
+def _check_path(cuda, path, mem, addrs, writes, svals):
+    before = (kernel.wave_loop.launches, kernel.wave_loop.wide_launches)
+    got_mem, got_vals = kernel.run_path(mem.clone(), addrs, writes, svals,
+                                        path)
+    want_mem, want_vals = wave_loop_ref(mem.clone(), addrs, writes, svals)
+    torch.cuda.synchronize()
+    wide = int(path.kind == "wide")
+    assert (kernel.wave_loop.launches, kernel.wave_loop.wide_launches) == (
+        before[0] + 1, before[1] + wide)
+    assert torch.equal(got_mem, want_mem), path
+    assert torch.equal(got_vals, want_vals), path
+
+
+@pytest.mark.parametrize("kind", ["resident", "wide"])
+@pytest.mark.parametrize("s,w", [(3, 1), (3, 8), (2, 1025), (2, 4096),
+                                 (2, 32768), (2049, 8), (1, 1025)])
+def test_wave_loop_both_paths_match_plain(cuda, kind, s, w):
+    """Each path forced, at W of 1, 8, 1025, 4096 and 32768 and S of 1,
+    2, 3 and 2049, bit for bit against the plain version (32768 lanes
+    are past one block: the wide path only). The wide path also with
+    four lanes a thread forced at a narrow width, and one where the grid
+    walks the lanes in more than one pass."""
+    lim = _limits(cuda)
+    m = 4097
+    if kind == "resident":
+        if w > kernel.RESIDENT_THREADS * kernel.RESIDENT_LANES[-1]:
+            assert kernel.choose_path(m, w, lim).kind == "wide"
+            return
+        path = kernel.choose_path(m, w, lim)
+        assert path == kernel.resident_path(w)
+    else:
+        path = kernel.wide_path(w, lim.max_grid)
+    assert path.kind == kind
+    case = _wave_case(cuda, s * w, m, s, w)
+    _check_path(cuda, path, *case)
+    if kind == "wide":
+        for lanes in (1, 4):
+            _check_path(cuda, kernel.Path("wide", 1, kernel.THREADS, lanes),
+                        *case)
+
+
+def test_wave_loop_one_block_at_its_capacity(cuda):
+    """An image of exactly one block's words on the resident path, at
+    each width of lanes a thread it is built for, and the wrapper's own
+    choice there and one word past it (the wide path)."""
+    lim = _limits(cuda)
+    assert lim.words_per_block >= 1024
+    m = lim.words_per_block
+    for lanes in kernel.RESIDENT_LANES:
+        w = lanes * kernel.RESIDENT_THREADS
+        assert kernel.launch_path(m, w, cuda) == kernel.resident_path(w)
+        _check_path(cuda, kernel.resident_path(w),
+                    *_wave_case(cuda, lanes, m, 3, w))
+    past = kernel.launch_path(m + 1, 1025, cuda)
+    assert past == kernel.wide_path(1025, lim.max_grid)
+    case = _wave_case(cuda, 99, m + 1, 3, 1025)
+    before = kernel.wave_loop.wide_launches
+    got, vals = kernel.wave_loop(case[0].clone(), *case[1:])
+    assert kernel.wave_loop.wide_launches == before + 1
+    want, want_vals = wave_loop_ref(case[0].clone(), *case[1:])
+    assert torch.equal(got, want) and torch.equal(vals, want_vals)
+
+
+@pytest.mark.parametrize("kind", ["resident", "wide"])
+def test_wave_loop_drops_out_of_range_write_lanes(cuda, kind):
+    """Write lanes at -5 and M + 3 are dropped on both paths; a load of
+    the same step at a write lane's address reads the pre-step word."""
+    m = 9
+    mem = torch.arange(m, dtype=torch.int64, device=cuda)
+    mem[3] = 0x7FF8000000000000 | 77  # a NaN payload
+    addrs = torch.tensor([[-5, m + 3, 2, 2, 3, 0, 1, m + 50]],
+                         dtype=torch.int32, device=cuda)
+    writes = torch.tensor([[1, 1, 1, 0, 0, 0, 0, 0]], dtype=torch.bool,
+                          device=cuda)
+    svals = torch.tensor([[100, 200, 300, 0, 0, 0, 0, 0]],
+                         dtype=torch.int64, device=cuda)
+    lim = _limits(cuda)
+    path = (kernel.choose_path(m, 8, lim) if kind == "resident"
+            else kernel.wide_path(8, lim.max_grid))
+    _check_path(cuda, path, mem, addrs, writes, svals)
+    got, vals = kernel.run_path(mem.clone(), addrs, writes, svals, path)
+    assert got.tolist() == [0, 1, 300, mem[3].item(), 4, 5, 6, 7, 8]
+    assert vals[0, 3].item() == 2 and vals[0, 7].item() == 8
+
+
+def test_resident_sync_counts_no_launch(cuda):
+    before = kernel.wave_loop.launches
+    for threads in (64, kernel.RESIDENT_THREADS):
+        kernel.resident_sync(threads, 4, cuda)
+    torch.cuda.synchronize()
+    assert kernel.wave_loop.launches == before
+
+
+@pytest.mark.parametrize("name,kw", [
+    *[(n, {}) for n in programs.TABLE1],
+    *[(n, {"speculation": "auto"}) for n in programs.SPEC_KERNELS],
+    *[(n, {"fifo_depth": 1}) for n in programs.STREAM_KERNELS],
+])
+def test_every_program_on_card_takes_its_paths(cuda, name, kw):
+    """One launch a segment, bit for bit against the oracle, and the
+    segments whose image and lanes fit one block on the resident path."""
+    bench = programs.get(name)
+    prog, arrays, params = bench.make(SCALES.get(name, bench.default_scale))
+    before = (kernel.wave_loop.launches, kernel.wave_loop.wide_launches)
+    res = executor.execute(prog, arrays, params, backend="torch", **kw)
+    assert kernel.wave_loop.launches - before[0] == res.run.n_segments > 0
+    lim = _limits(cuda)
+    one_block = sum(
+        res.plan.mem_size + 1 <= lim.words_per_block
+        and w <= kernel.RESIDENT_THREADS * kernel.RESIDENT_LANES[-1]
+        for _, w in res.run.segments)
+    assert (kernel.wave_loop.wide_launches - before[1]
+            == res.run.n_segments - one_block)
+    oracle = ir.interpret(prog, arrays, params)
+    for k in oracle:
+        assert res.arrays[k].tobytes() == oracle[k].tobytes(), f"{name}: {k}"
+
+
 @pytest.mark.parametrize("name", programs.TABLE1)
 def test_execute_on_card_matches_oracle(cuda, name):
     prog, arrays, params = programs.get(name).make(SCALES[name])
@@ -277,6 +418,51 @@ def test_fused_stream_kernel_matches_plain(cuda, dtype, lookback):
     before = k3.fused_stream.launches
     empty_v, _ = k3.fused_stream(src_d, val, f_d[:0], dst_d[:0], mem)
     assert empty_v.shape == (0,) and k3.fused_stream.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lookback", range(1, 9))
+def test_fused_stream_windows_and_ragged_groups(cuda, dtype, lookback):
+    """Windows across index 0 and past S, runs of equal addresses longer
+    than the lookback, valid bits given and not, D not a multiple of the
+    consumers a thread, and frontier/address vectors that are not 16-byte
+    aligned: bit for bit against the plain version."""
+    rng = np.random.default_rng(100 + lookback)
+    s, m = 700, 300
+    src = np.sort(rng.integers(0, m, s))
+    src[1::4] = src[0::4][: len(src[1::4])]
+    src[2::4] = src[0::4][: len(src[2::4])]
+    t = lambda x, dt=torch.int32: torch.from_numpy(np.asarray(x)).to(cuda, dt)
+    val = torch.from_numpy(rng.standard_normal(s)).to(cuda, dtype)
+    mem = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+    valid = t(rng.random(s) < 0.5)
+    for d in (1, 3, 4, 5, 1023, 1026):
+        dst = rng.integers(-2, m + 2, d + 1)
+        dst[::2] = rng.choice(src, len(dst[::2]))
+        f = np.searchsorted(src, dst, side="right")
+        edges = [0, 1, 2, -3, s, s + 4, lookback - 1, s - 1]
+        f[1:1 + len(edges)] = edges[:d]
+        dst_d, f_d = t(dst), t(f)
+        for off in (0, 1):  # off = 1: views 4 bytes past an aligned start
+            args = (t(src), val, f_d[off:off + d], dst_d[off:off + d], mem)
+            for v in (valid, None):
+                got_v, got_h = k3.fused_stream(*args, v, lookback=lookback)
+                want_v, want_h = fused_stream_ref(*args, v,
+                                                  lookback=lookback)
+                bits = torch.int32 if dtype == torch.float32 else torch.int64
+                assert torch.equal(got_v.view(bits), want_v.view(bits)), (
+                    d, off, v is None)
+                assert torch.equal(got_h, want_h), (d, off, v is None)
+
+
+def test_fused_stream_without_producers_reads_memory(cuda):
+    mem = torch.arange(5, dtype=torch.float64, device=cuda)
+    src = torch.zeros(0, dtype=torch.int32, device=cuda)
+    dst = torch.tensor([-1, 0, 4, 9], dtype=torch.int32, device=cuda)
+    f = torch.tensor([0, 3, -1, 2], dtype=torch.int32, device=cuda)
+    got_v, got_h = k3.fused_stream(src, src.double(), f, dst, mem,
+                                   lookback=4)
+    assert got_v.tolist() == [0.0, 0.0, 4.0, 4.0] and not got_h.any()
 
 
 def test_fused_raw_loops_on_card_matches_sequential_loop(cuda):

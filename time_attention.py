@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""K6 (flash prefill) and K7 (decode attention), and on request K8
-(selective scan) and K9 (grouped expert matmul), timed on one card, for
-the ``repro_torch`` of any source tree.
+"""K6 (flash prefill) and K7 (decode attention), and on request K1 (wave
+steps), K3 (guarded forwarding), K8 (selective scan) and K9 (grouped
+expert matmul), timed on one card, for the ``repro_torch`` of any source
+tree.
 
 Run from the repository root on a machine with a CUDA card::
 
-    python3 time_attention.py [--src DIR] [--label NAME] [--kernels K6,K7,K8,K9]
+    python3 time_attention.py [--src DIR] [--label NAME] [--kernels K1,K3,K6,K7,K8,K9]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two commits can be timed side by
@@ -15,6 +16,14 @@ timing protocol is ``chip_smoke.py``'s (``_call_times``: the whole
 wrapper call, the median of 7 runs of 20 calls; the card's time alone;
 the host's microseconds a call), on the same shapes and seeds:
 
+- K1 at ``chip_smoke.K1_SHAPES``: the kernel phase's image of 2**24 + 1
+  words (S=8, W=2**20), an L2-resident one (2**18 + 1, S=64, W=2**18),
+  and the launches of bnn (the main path's largest), RAWloop, hist+add,
+  filter_pipe, WARloop and stream_dot, each with the path it took and
+  the barrier cost of that path beside its bounds;
+- K3 at S=D=2**20 over a float64 memory of 2**24 + 1 words,
+  ``lookback=min_lookback(src)``, beside its bytes and sector-aware
+  bounds;
 - K6 causal at qwen3-14b's heads (H=40 over Hk=8, D=128): the serve
   path's prefill, B=4, S=128, and the kernel phase's B=1, S=4096;
 - K7 at the same heads: the serve path's B=4 over 161 positions at
@@ -46,6 +55,24 @@ import chip_smoke as cs
 
 def _k6_cases():
     return [("serve", cs.SERVE_B, cs.SERVE_P), ("kernel", cs.K6_B, cs.K6_S)]
+
+
+def time_k1() -> dict:
+    from repro_torch.kernels.wave_exec import kernel
+    from repro_torch.kernels.wave_exec.ref import random_tables, wave_loop_ref
+
+    return {name: cs.time_wave_case(kernel, wave_loop_ref, random_tables,
+                                    20 + seed, m, s, w, plain=False)
+            for seed, (name, (m, s, w)) in enumerate(cs.K1_SHAPES.items())}
+
+
+def time_k3() -> dict:
+    from repro_torch.kernels.fused_stream import kernel
+    from repro_torch.kernels.fused_stream.ops import min_lookback
+    from repro_torch.kernels.fused_stream.ref import fused_stream_ref
+
+    return cs.time_forward_case(kernel, fused_stream_ref, min_lookback,
+                                plain=False)
 
 
 def time_k6(kernel, flash_gqa_ref) -> dict:
@@ -167,10 +194,10 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(cs.ROOT, "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--kernels", default="K6,K7",
-                    help="comma-separated subset of K6,K7,K8,K9")
+                    help="comma-separated subset of K1,K3,K6,K7,K8,K9")
     a = ap.parse_args(argv)
     wanted = a.kernels.split(",")
-    if not set(wanted) <= {"K6", "K7", "K8", "K9"}:
+    if not set(wanted) <= {"K1", "K3", "K6", "K7", "K8", "K9"}:
         ap.error(f"--kernels: unknown kernels in {a.kernels}")
     if not torch.cuda.is_available():
         print("time_attention: no CUDA device", file=sys.stderr)
@@ -185,6 +212,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     timers = {
+        "K1": time_k1,
+        "K3": time_k3,
         "K6": lambda: time_k6(kernel, flash_gqa_ref),
         "K7": lambda: time_k7(kernel, decode_gqa_ref),
         "K8": lambda: time_k8(k8, selective_scan_ref),
