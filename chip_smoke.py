@@ -100,7 +100,23 @@ failure exits non-zero:
    speedups of FUS2 over STA and LSQ, and host seconds; then the
    speculative programs at 8x in STA and in FUS2 under each predictor,
    cycles equal to the reference's;
-10. the LM paths, one model on the card at a time, 4 prompts of 128
+10. HLS analysis and DSE — host code in both packages, but for the hint
+    sanitizer: ``python -m repro_torch.analysis.lint --all`` equal to
+    the committed fixture byte for byte; the two contradictory-hint
+    programs through ``execute(..., validate_hints=True)`` on the card
+    and ``simulate(mode="FUS2")`` under both engines, raising
+    ``HintViolation`` at the same op, instance and address (no K1
+    launch: the check precedes the first step), and the hint that
+    admits the reset passing and running through K1; the reference
+    benchmark's evidence sweep (nine kernels x STA/FUS1/FUS2 x three
+    trace modes x six sizings, plus an STA cycle-engine grid: 594
+    points) at 1x with a worker a core up to 8, one point of each group
+    and every FUS2 point of hist+add held against a standalone
+    ``simulate()``, a 2-way shard plus merge against the whole, a warm
+    resume that executes nothing; ``dse.calibrate`` at
+    ``BENCH_CALIB.json``'s scales equal to that record's fit; counts
+    and host seconds beside the card line;
+11. the LM paths, one model on the card at a time, 4 prompts of 128
     tokens and 32 new, float32, weights drawn on the card from a seed;
     prefill seconds, decode ms per step beside its bytes bound, tokens/s,
     peak memory and a profile of 4 decode steps for each:
@@ -117,7 +133,7 @@ failure exits non-zero:
     layer's dropless MoE (3 K9 launches) against its capacity path with
     room for every assignment on the prefill's hidden states, routing
     equal, then ``serve_batch`` (1920 K7 launches);
-11. the card line, the ``{"kernels": [...]}`` line, and last
+12. the card line, the ``{"kernels": [...]}`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where no CUDA device is present, and
@@ -128,6 +144,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -138,7 +155,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
+
+if __name__ != "__mp_main__":
+    # a DSE worker that the sweep spawns from this script imports it
+    # under that name; it runs host code only, so it starts without torch
+    import torch  # noqa: E402
 
 # the Table-1 scales of the reference benchmark, times 8
 SCALES_8X = {
@@ -154,6 +175,22 @@ SCALES_1X = {
 }
 MODES = ("STA", "LSQ", "FUS1", "FUS2")
 SEQ_PROGRAM, SEQ_STEPS = "hist+add", 256
+# the DSE phase: the reference benchmark's evidence sweep
+# (benchmarks/sweep.py's SIZINGS and build_spec) at SCALES_1X, with a
+# worker a core up to 8, into a cache it starts empty; the linter's
+# fixture and the JAX package's calibration record are read as data
+DSE_SIZINGS = {
+    "base": {},
+    "narrow": {"burst_size": 4, "dram_latency": 100},
+    "deep": {"burst_size": 32, "dram_latency": 400},
+    "sta-ii-120": {"sta_mem_dep_ii": 120},
+    "sta-ii-240": {"sta_mem_dep_ii": 240},
+    "fwd-4": {"forward_latency": 4},
+}
+DSE_WORKERS = min(8, os.cpu_count() or 1)
+DSE_CACHE = os.path.join(ROOT, "build", "dse_cache")
+LINT_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "lint_all.txt")
+CALIB_RECORD = os.path.join(ROOT, "BENCH_CALIB.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
 INT32_LANES_PER_SM = 64  # Hopper: INT32 operations per SM per clock
@@ -1718,6 +1755,268 @@ def run_simulate():
     return rows, segments
 
 
+def run_lint():
+    """``python -m repro_torch.analysis.lint --all``, in this process:
+    exit 0 and its output byte for byte the committed fixture."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import lint
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = lint.main(["--all"])
+    host_s = time.perf_counter() - t0
+    with open(LINT_FIXTURE, encoding="utf-8") as f:
+        same = buf.getvalue() == f.read()
+    if rc != 0 or not same:
+        raise AssertionError(f"lint --all: exit {rc}, output equal to the "
+                             f"fixture: {same}")
+    return {"exit": rc, "equal_to_fixture": same,
+            "summary": buf.getvalue().splitlines()[-1], "host_s": host_s}
+
+
+def _lying_hint_program(n=8):
+    """Address (n-1)-i strictly decreases inside the innermost loop while
+    the hint swears it is monotonic."""
+    from repro_torch.core import loopir as ir
+
+    hint = ir.MonotonicHint(innermost_monotonic=True)
+    loop = ir.Loop("i", ir.Const(n), (
+        ir.Load("ld_a", "A", ir.Bin("-", ir.Const(n - 1), ir.Var("i")),
+                hint=hint),
+        ir.Store("st_o", "out", ir.Var("i"), ir.LoadVal("ld_a")),
+    ))
+    arrays = {"A": np.arange(n, dtype=np.float64),
+              "out": np.zeros(n, dtype=np.float64)}
+    return ir.Program("lying_hint", loops=(loop,)), arrays, {}
+
+
+def _omitted_reset_program(outer=3, inner=4, resets=frozenset()):
+    """Address j resets every outer iteration; the hint's explicit
+    ``non_monotonic_outer`` omits depth 1 (unless ``resets`` admits it),
+    so every reset is a lie."""
+    from repro_torch.core import loopir as ir
+
+    hint = ir.MonotonicHint(innermost_monotonic=True,
+                            non_monotonic_outer=resets)
+    loop = ir.Loop("i", ir.Const(outer), (
+        ir.Loop("j", ir.Const(inner), (
+            ir.Load("ld_a", "A", ir.Var("j"), hint=hint),
+            ir.Store("st_o", "out", ir.Var("i") * inner + ir.Var("j"),
+                     ir.LoadVal("ld_a")),
+        )),
+    ))
+    arrays = {"A": np.arange(inner, dtype=np.float64),
+              "out": np.zeros(outer * inner, dtype=np.float64)}
+    return ir.Program("omitted_reset", loops=(loop,)), arrays, {}
+
+
+def run_hint_sanitizer(kernel, device="cuda"):
+    """The two contradictory-hint programs through ``execute(...,
+    validate_hints=True)`` on the card and ``simulate(mode="FUS2")`` under
+    both engines: each raises ``HintViolation`` at the same op, address
+    and previous address, and at the same instance once execute's stream
+    position is mapped through the op's trace. The sanitizer checks the
+    plan before its first step, so these launch the wave kernel no time.
+    Then the hint that admits the reset: the sanitizer passes and the
+    program runs through the wave kernel, arrays equal to the oracle.
+    Returns the rows and the (M, S, W) of that run's segments."""
+    from repro_torch.analysis import deps
+    from repro_torch.core import dae, executor, loopir as ir, schedule
+    from repro_torch.core import simulator
+
+    def violation(fn):
+        try:
+            fn()
+        except deps.HintViolation as e:
+            return e.op_id, e.instance, e.addr, e.prev_addr
+        raise AssertionError("no HintViolation raised")
+
+    rows = []
+    for make in (_lying_hint_program, _omitted_reset_program):
+        prog, arrays, params = make()
+        before = kernel.wave_loop.launches
+        op, pos, addr, prev = violation(lambda: executor.execute(
+            prog, arrays, params, validate_hints=True, device=device))
+        if kernel.wave_loop.launches != before:
+            raise AssertionError(f"{prog.name}: launched before the check")
+        trace = schedule.trace_program(prog, dae.decouple(prog), arrays,
+                                       params, mode="auto")[op]
+        want = (op, tuple(int(v) for v in trace.sched[pos]), addr, prev)
+        if int(trace.addr[pos]) != addr:
+            raise AssertionError(f"{prog.name}: position {pos} is not at "
+                                 f"address {addr}")
+        for engine in ("event", "cycle"):
+            got = violation(lambda: simulator.simulate(
+                prog, arrays, params, mode="FUS2", engine=engine,
+                validate_hints=True))
+            if got != want:
+                raise AssertionError(f"{prog.name}: {engine} engine raised "
+                                     f"at {got}, execute at {want}")
+        rows.append({"program": prog.name, "op": op, "position": int(pos),
+                     "instance": list(want[1]), "addr": addr,
+                     "prev_addr": prev, "engines": ["event", "cycle"]})
+    prog, arrays, params = _omitted_reset_program(resets=frozenset({1}))
+    res = executor.execute(prog, arrays, params, validate_hints=True,
+                           device=device)
+    if not _bits_equal(res.arrays, ir.interpret(prog, arrays, params)):
+        raise AssertionError("admitted reset: arrays differ from the oracle")
+    rows.append({"program": "omitted_reset, reset admitted",
+                 "sanitizer": "passed", "n_segments": res.run.n_segments})
+    m = res.plan.mem_size + 1
+    return rows, [(m, s, w) for s, w in res.run.segments]
+
+
+def build_dse_spec(dse, programs, scales):
+    """The evidence sweep: nine kernels x (STA/FUS1/FUS2 x three trace
+    modes x six sizings), plus an STA grid on the cycle engine (STA
+    ignores the engine, so the planner folds it)."""
+    kernels = list(programs.TABLE1)
+    return dse.SweepSpec(
+        kernels=kernels, scales=scales, modes=("STA", "FUS1", "FUS2"),
+        trace_modes=("auto", "compiled", "interp"), sizings=DSE_SIZINGS,
+        extra=(dse.SweepSpec(
+            kernels=kernels, scales=scales, modes=("STA",),
+            engines=("cycle",), trace_modes=("auto", "interp"),
+            sizings=DSE_SIZINGS,
+        ),),
+    )
+
+
+def _sim_sig(res) -> tuple:
+    return (res.cycles, res.dram_bursts, res.dram_requests, res.forwards,
+            res.squashed,
+            tuple(sorted((k, v.dtype.str, v.shape, v.tobytes())
+                         for k, v in res.arrays.items())))
+
+
+def _sweep_sigs(res) -> list:
+    volatile = ("cached", "run_wall_s")
+    rows = [{k: v for k, v in r.items() if k not in volatile}
+            for r in res.rows()]
+    return [json.dumps(rows, sort_keys=True, default=str)] + [
+        _sim_sig(pr.result) for pr in res.points]
+
+
+def run_dse_sweep(scales=SCALES_1X, workers=DSE_WORKERS, cache=DSE_CACHE):
+    """The evidence sweep, cold into an empty cache; one point of each
+    group and every FUS2 point of hist+add against a standalone
+    ``simulate()``; a 2-way shard plus merge against the whole; and a
+    warm resume that must execute nothing."""
+    import shutil
+
+    from repro_torch import dse
+    from repro_torch.core import programs, simulator
+    from repro_torch.launch import analysis
+
+    shutil.rmtree(cache, ignore_errors=True)
+    spec = build_dse_spec(dse, programs, scales)
+    points = spec.points()
+    whole_dir = os.path.join(cache, "whole")
+    t0 = time.perf_counter()
+    cold = dse.sweep(spec, cache_dir=whole_dir, workers=workers)
+    cold_s = time.perf_counter() - t0
+
+    groups = dse.plan(points)
+    held = {g.runs[0].point_indices[0] for g in groups}
+    held |= {i for i, p in enumerate(points)
+             if p.kernel == "hist+add" and p.mode == "FUS2"}
+    t0 = time.perf_counter()
+    for i in sorted(held):
+        p = points[i]
+        prog, arrays, params = programs.get(p.kernel).make(p.scale)
+        alone = simulator.simulate(
+            prog, arrays, params, mode=p.mode, sim=p.sim_params(),
+            engine=p.engine, trace_mode=p.trace_mode,
+            speculation=p.speculation, predictor=p.predictor,
+            static_prune=p.static_prune,
+        )
+        if _sim_sig(cold.points[i].result) != _sim_sig(alone):
+            raise AssertionError(f"sweep point {p.point_id} differs from "
+                                 "standalone simulate()")
+    standalone_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    merged = dse.merge_results([
+        dse.sweep_shard(spec, i, 2, workers=workers,
+                        cache_dir=os.path.join(cache, f"shard{i}"))
+        for i in range(2)
+    ])
+    shard_s = time.perf_counter() - t0
+    if _sweep_sigs(merged) != _sweep_sigs(cold):
+        raise AssertionError("2-way shard + merge differs from the whole")
+
+    t0 = time.perf_counter()
+    warm = dse.sweep(spec, cache_dir=whole_dir, workers=workers, resume=True)
+    warm_s = time.perf_counter() - t0
+    ws = warm.stats
+    if ws.n_executed != 0 or ws.n_cache_hits != ws.n_unique_runs:
+        raise AssertionError(f"warm resume executed {ws.n_executed} runs")
+    if _sweep_sigs(warm) != _sweep_sigs(cold):
+        raise AssertionError("warm resume differs from the cold sweep")
+    return {
+        "points": cold.stats.n_points, "unique_runs": cold.stats.n_unique_runs,
+        "groups": len(groups), "cold_cache_hits": cold.stats.n_cache_hits,
+        "warm_cache_hits": ws.n_cache_hits, "warm_executed": ws.n_executed,
+        "workers": workers, "scales": scales, "cold_s": cold_s,
+        "warm_s": warm_s, "shard_merge_2_s": shard_s,
+        "standalone_points": len(held), "standalone_s": standalone_s,
+        "speedups": analysis.summarize_sweep(cold.rows())["speedups"]["hmean"],
+        "card": _card_line(),
+    }
+
+
+def _curves_equal(got: dict, rec: dict) -> bool:
+    """Fit curves equal to the record's: every label, best point and
+    cycles per iteration exactly, each point's mean relative error to 2
+    ulps. The record was written by a Python before 3.12, whose ``sum()``
+    of floats rounds each addition where 3.12's compensates; on 3.12 the
+    JAX package's ``calibrate`` moves the same two points by one ulp."""
+    if got.keys() != rec.keys():
+        return False
+    for field, g in got.items():
+        r = rec[field]
+        if g["best"] != r["best"] or g["curve"].keys() != r["curve"].keys():
+            return False
+        for label, point in g["curve"].items():
+            want = r["curve"][label]
+            if point["cpi"] != want["cpi"] or (
+                    abs(point["err"] - want["err"]) > 2 * math.ulp(want["err"])):
+                return False
+    return True
+
+
+def run_calibration(workers=DSE_WORKERS):
+    """``dse.calibrate`` at the record's scales with the default grids:
+    the fitted fields, the mean relative error (both rounded as the
+    record is), the per-kernel results, the iteration counts and both
+    fit curves (``_curves_equal``) equal the JAX package's
+    ``BENCH_CALIB.json``."""
+    from repro_torch import dse
+
+    with open(CALIB_RECORD) as f:
+        rec = json.load(f)
+    t0 = time.perf_counter()
+    fit = dse.calibrate(scales=rec["scales"], workers=workers)
+    host_s = time.perf_counter() - t0
+    checks = {
+        "fitted": fit.fitted == rec["fitted"],
+        "mean_rel_err": fit.mean_rel_err == rec["mean_rel_err"],
+        "per_kernel": fit.per_kernel == rec["per_kernel"],
+        "iters": fit.iters == rec["iters_per_kernel"],
+        "fit_curves": _curves_equal(fit.per_field, rec["fit_curves"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"calibration differs from the record: "
+                             f"{checks}, fitted {fit.fitted}, mean "
+                             f"relative error {fit.mean_rel_err}")
+    return {"fitted": fit.fitted, "mean_rel_err": fit.mean_rel_err,
+            "scales": fit.scales, "equal_to_record": checks,
+            "host_s": host_s, "card": _card_line()}
+
+
 def _hmean(xs):
     return len(xs) / sum(1.0 / x for x in xs)
 
@@ -1950,7 +2249,29 @@ def main() -> int:
     }
     print("simulate:", json.dumps(summary), flush=True)
 
-    # 10. the LM paths, one model at a time, with the K6-K9 counts read
+    # 10. HLS analysis and DSE. The linter, the sweep and the calibration
+    # are host code in both packages (numpy and simulate(), no kernel),
+    # so they take no device argument: this is not a fallback to the
+    # CPU. The hint sanitizer's programs run through execute() on the
+    # card, with the wave kernel's counts read around them alone.
+    t0 = time.perf_counter()
+    lint_row = run_lint()
+    print("lint:", json.dumps(lint_row), flush=True)
+    _zero_wave_counts(kernel)
+    hint_rows, hint_shapes = run_hint_sanitizer(kernel)
+    hint_split = _wave_launches(kernel, "hint sanitizer", hint_shapes)
+    print("hint sanitizer:", json.dumps({"programs": hint_rows,
+                                         "wave_launches": hint_split}),
+          flush=True)
+    dse_row = run_dse_sweep()
+    print("DSE sweep:", json.dumps(dse_row), flush=True)
+    calib_row = run_calibration()
+    print("calibration:", json.dumps(calib_row), flush=True)
+    print("HLS analysis and DSE:", json.dumps({
+        "host_s": time.perf_counter() - t0, "card": _card_line(),
+    }), flush=True)
+
+    # 11. the LM paths, one model at a time, with the K6-K9 counts read
     # around each run: dense GQA (K6, K7), Mamba-1 (K8), MoE (K6, K7, K9)
     sv = run_lm_path(SERVE_ARCH)
     print("serve path:", json.dumps(sv), flush=True)
@@ -1959,7 +2280,7 @@ def main() -> int:
     moe = run_lm_path(MOE_ARCH, n_layers=MOE_LAYERS)
     print("MoE path:", json.dumps(moe), flush=True)
 
-    # 11. result lines
+    # 12. result lines
     big = waves["kernel_phase"]
     wave_entry = {
         "name": "wave_loop", "route": "cuda",

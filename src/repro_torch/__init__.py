@@ -24,6 +24,9 @@ SpMV and histogram kernels (``kernels/csr_spmv``,
 attention kernels (``kernels/attention``), extended to mixture-of-experts
 decoders, whose dropless path runs the grouped matmul kernel
 (``kernels/moe_group_mm``), and to Mamba-1 stacks, whose prefill runs the
-selective-scan kernel (``kernels/ssm_scan``). Entry points run on the card
+selective-scan kernel (``kernels/ssm_scan``); and the HLS tools on the
+host: the linter (``analysis.lint``), the DSE sweep service and its
+calibration (``dse``), and the sweep summaries (``launch.analysis``).
+Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU, as the tests do.
 """

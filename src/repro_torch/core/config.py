@@ -3,9 +3,9 @@
 The port's copy of ``core/config.py`` in the JAX package, with the same
 fields, defaults and checks. ``RunConfig`` consolidates the knobs into a
 single frozen dataclass accepted as ``config=`` by
-``executor.execute``, ``executor.build_wave_plan`` and
-``simulator.simulate`` (the DSE sweep, which also takes it in the JAX
-package, is not ported yet). The differences are the backend's vocabulary and
+``executor.execute``, ``executor.build_wave_plan``,
+``simulator.simulate`` and ``dse.SweepSpec`` (which seeds the sweep
+axes from it). The differences are the backend's vocabulary and
 default: ``BACKENDS`` is ``("numpy", "torch")``, where ``"torch"`` is
 the counterpart of the reference's ``"pallas"`` — the wave executor's
 hardware backend on a CUDA card — and ``backend`` defaults to

@@ -234,8 +234,8 @@ def check_pair_batch(
     ``(C, m)``, ``next_state`` of ``(C, m)``, ``nodep_bits`` of
     ``(C, m)`` — one row per sweep configuration evaluating the same
     ``m`` dst requests against per-config DU states. The result then has
-    shape ``(C, m)``. This is how the JAX package's DSE
-    sweep runner evaluates one pair across a whole group of
+    shape ``(C, m)``. This is how the DSE sweep runner
+    (``repro_torch.dse.runner``) evaluates one pair across a whole group of
     design points in a single call instead of C scalar-slice calls.
 
     Term-for-term mirror of ``check_pair``; tests assert elementwise

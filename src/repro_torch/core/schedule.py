@@ -165,8 +165,8 @@ def trace_program(
     consume it for epoch gating and squash traffic (DESIGN.md §10).
     ``oracle_loads`` optionally supplies the per-op oracle load streams
     the speculative AGU predicts against (callers that already ran a
-    hooked ``loopir.interpret`` — validation, the wave executor — pass
-    theirs to avoid a second sequential walk); when
+    hooked ``loopir.interpret`` — validation, the DSE planner, the wave
+    executor — pass theirs to avoid a second sequential walk); when
     absent and a PE speculates, one hooked run happens here.
     ``predictor`` (``dae.PREDICTORS``) and ``spec_runahead``
     (``SimParams.spec_runahead``; ``None`` = the speculate default)

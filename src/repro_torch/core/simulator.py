@@ -126,8 +126,8 @@ class SimResult:
 @dataclasses.dataclass
 class SharedArtifacts:
     """Precomputed per-(program, arrays, params) state shared across many
-    simulation points by a batch runner such as the JAX package's DSE
-    sweep (DESIGN.md §9). Every field is a pure function of the
+    simulation points by the DSE batch runner (``repro_torch.dse``,
+    DESIGN.md §9). Every field is a pure function of the
     program/data — never of timing parameters — so injecting it cannot
     change any result; each field falls back to the engine's own
     computation when ``None``.
@@ -1034,7 +1034,7 @@ def simulate_traced(
     The lower half of ``simulate()``: takes the ``Compiled`` analysis
     and the materialized AGU request streams instead of rebuilding them,
     plus an optional ``SharedArtifacts`` bundle. This is the entry point
-    a batch runner uses to run many timing/mode
+    the DSE batch runner (``repro_torch.dse``) uses to run many timing/mode
     points against one compiled program — results are bit-identical to
     ``simulate()`` with the same settings, because every shared artifact
     is timing-independent (DESIGN.md §9).

@@ -1,2 +1,3 @@
 """Entry points of the port: the prefill and serve step builders
-(``steps``) and the serving loop (``serve``)."""
+(``steps``), the serving loop (``serve``), and the summaries of a
+design-space sweep (``analysis``)."""

@@ -47,6 +47,31 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert int(out.stdout.strip()) >= 20  # every module was imported
 
 
+def test_hls_tools_load_no_torch():
+    """The linter, the DSE sweep service and the sweep summaries are host
+    code: importing them loads no torch either, so the sweep's spawned
+    workers start without it."""
+    code = (
+        "import sys, pkgutil\n"
+        "import repro_torch.analysis.lint, repro_torch.dse\n"
+        "import repro_torch.launch.analysis\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.dse.__path__, 'repro_torch.dse.')]\n"
+        "assert set(mods) <= set(sys.modules), mods\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0]\n"
+        "             in ('torch', 'jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == 6  # spec .. calibrate, all loaded
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text())):
