@@ -7,7 +7,11 @@
 //
 //   o[b, i, h] = sum_j softmax_j(s[i, j]) v[b, j, h / rep]
 //   s[i, j]    = sm_scale * q[b, i, h] . k[b, j, h / rep]   (-1e30 where
-//                causal and j > i)
+//                causal and j > i, and where window > 0 and j <= i - window)
+//
+// The sliding window (gemma3's local layers) is the mask of the reference's
+// model-level loop (flash._mask, src/repro/models/flash.py:56); the Pallas
+// kernel has none.
 //
 // K7 replaces _decode_kernel (same file :108, reached through
 // decode_attention :140): one query per (b, h) against a KV cache of
@@ -53,12 +57,20 @@
 // re-lays it out. The three products of a term go one pass over the
 // n-tiles at a time, so no mma waits on the one before it. Causal tiles
 // stop at the diagonal and a warp skips the tiles wholly above its rows.
+// With a window, a block starts at the first tile that holds a key inside its
+// first row's window, and a warp skips the tiles wholly left of its own first
+// row's (where every row keeps a key: S < S_kv + window). A row whose first
+// tile lies wholly left of its window gets weights of 1 there (finite -1e30
+// minus itself); its first key inside the window sets alpha = exp(-1e30 - m)
+// = 0 on them, as in the reference's blocked loop.
 //
 // K6 bound. Operations: 4 * B * H * S * S_kv * D multiply-adds' flops, half
 // of it when causal: at B=1, H=40, S=4096, D=128 causal, 171.8 GFLOP.
 // At the accuracy kept (3xTF32) that is 3 * 171.8 GFLOP at the TF32 tensor
 // cores' 495 TFLOP/s, 1.04 ms; in float32 on the CUDA cores (67 TFLOP/s)
-// it was 2.57 ms. mma.sync does not reach the data sheet's rate (that
+// it was 2.57 ms. With a window only the keys inside it count: at gemma3's
+// heads (8 over 4, D=256), S=4096 and window 1024, sum_i min(i + 1, 1024)
+// key rows per query row. mma.sync does not reach the data sheet's rate (that
 // takes wgmma): the split and the softmax run between the products, and
 // the block's phases (split, then products) do not overlap.
 //
@@ -223,7 +235,8 @@ template <typename T, int DMAX, int WARPS, int KEYS>
 __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int S_kv,
-                 int H, int Hk, int d, int causal, float sm_scale, int vec) {
+                 int H, int Hk, int d, int causal, int window, float sm_scale,
+                 int vec) {
   using F = FlashTile<WARPS, KEYS>;
   constexpr int BQ = F::kBQ, BK = F::kBK, NTH = F::kThreads;
   constexpr int NT = DMAX / 8;  // n-tiles of the output, k-steps of Q.K
@@ -313,9 +326,15 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
   // causal: keys past the tile's last row are masked for every row
   const int n_kv = causal ? min(S_kv, q0 + BQ) : S_kv;
   const int n_tiles = (n_kv + BK - 1) / BK;
-  if (vec) stage(0);
+  // window: keys j <= q0 - window are masked for every row; skipped only
+  // where every row keeps a key inside its window (else such a row averages
+  // all S_kv keys, as in the reference)
+  const int wskip = window > 0 && S < (long long)S_kv + window ? window : 0;
+  const int t_lo = wskip ? max(0, q0 - wskip + 1) / BK : 0;
+  const int warp_row = q0 + warp * 16;  // the warp's first row
+  if (vec) stage(t_lo * BK);
   cp_commit();
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_lo; t < n_tiles; ++t) {
     const int k0 = t * BK;
     cp_wait<0>();
     __syncthreads();  // tile t staged; the split words consumed
@@ -354,6 +373,7 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
     if (vec && t + 1 < n_tiles) stage(k0 + BK);
     cp_commit();
     if (causal && k0 > last_row) continue;  // every score of the warp masked
+    if (wskip && k0 + BK - 1 <= warp_row - wskip) continue;  // left of it
     // S = Q K^T, 16 x BK a warp: NK n-tiles of 8 keys, the small terms in
     // their own accumulators, one pass over the n-tiles a term (no product
     // waits on the one before)
@@ -389,7 +409,8 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
         const int i = row0 + 8 * (e >> 1);
         float x = s[n][e] + s2[n][e];
         if (j >= S_kv) x = -INFINITY;
-        else if (causal && j > i) x = kNegInf;
+        else if ((causal && j > i) || (window > 0 && j <= i - window))
+          x = kNegInf;
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -742,7 +763,8 @@ size_t decode_smem(int rep, int d, int size) {
 template <typename T, int DMAX, int WARPS, int KEYS>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int S_kv, int H, int Hk, int d,
-                         int causal, float sm_scale, cudaStream_t stream) {
+                         int causal, int window, float sm_scale,
+                         cudaStream_t stream) {
   using F = FlashTile<WARPS, KEYS>;
   const size_t smem = flash_smem_t<WARPS, KEYS>(d);
   auto kern = flash_kernel<T, DMAX, WARPS, KEYS>;
@@ -754,7 +776,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)(B * H), (unsigned)((S + F::kBQ - 1) / F::kBQ));
   kern<<<grid, F::kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, S, S_kv, H, Hk, d, causal,
-      sm_scale, vec);
+      window, sm_scale, vec);
   return cudaGetLastError();
 }
 
@@ -767,36 +789,37 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
 template <typename T, int DMAX>
 cudaError_t launch_flash_tile(const void* q, const void* k, const void* v,
                               void* o, int B, int S, int S_kv, int H, int Hk,
-                              int d, int causal, float sm_scale, int sms,
-                              cudaStream_t stream) {
+                              int d, int causal, int window, float sm_scale,
+                              int sms, cudaStream_t stream) {
   if constexpr (DMAX > 128) {
     return launch_flash<T, DMAX, 4, 16>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                        causal, sm_scale, stream);
+                                        causal, window, sm_scale, stream);
   } else {
     if ((long long)B * H * ((S + 127) / 128) >= 2LL * sms)
       return launch_flash<T, DMAX, 8, 32>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                          causal, sm_scale, stream);
+                                          causal, window, sm_scale, stream);
     return launch_flash<T, DMAX, 4, kSmallBK>(q, k, v, o, B, S, S_kv, H, Hk,
-                                              d, causal, sm_scale, stream);
+                                              d, causal, window, sm_scale,
+                                              stream);
   }
 }
 
 template <typename T>
 cudaError_t launch_flash_d(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int S_kv, int H, int Hk,
-                           int d, int causal, float sm_scale, int sms,
-                           cudaStream_t stream) {
+                           int d, int causal, int window, float sm_scale,
+                           int sms, cudaStream_t stream) {
   if (d <= 32)
     return launch_flash_tile<T, 32>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                    sm_scale, sms, stream);
+                                    window, sm_scale, sms, stream);
   if (d <= 64)
     return launch_flash_tile<T, 64>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                    sm_scale, sms, stream);
+                                    window, sm_scale, sms, stream);
   if (d <= 128)
     return launch_flash_tile<T, 128>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                     sm_scale, sms, stream);
+                                     window, sm_scale, sms, stream);
   return launch_flash_tile<T, 256>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                   sm_scale, sms, stream);
+                                   window, sm_scale, sms, stream);
 }
 
 template <typename T>
@@ -835,27 +858,29 @@ extern "C" {
 
 // dtype: 0 float32, 1 float16, 2 bfloat16. q (B, S, H, d), k and v
 // (B, S_kv, Hk, d), o (B, S, H, d), all contiguous; S, S_kv >= 1 and
-// S <= 65535 * 64; sms the card's SM count (the tile's choice). Returns a
+// S <= 65535 * 64; window 0 (none) or the sliding window (keys j > i -
+// window); sms the card's SM count (the tile's choice). Returns a
 // cudaError_t (0 = launched).
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* o, int B, int S, int S_kv,
-                           int H, int Hk, int d, int causal, float sm_scale,
-                           int sms, void* stream_) {
+                           int H, int Hk, int d, int causal, int window,
+                           float sm_scale, int sms, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  if (!shapes_ok(B, H, Hk, d) || S < 1 || S_kv < 1 || sms < 1 ||
+  if (!shapes_ok(B, H, Hk, d) || S < 1 || S_kv < 1 || sms < 1 || window < 0 ||
       (S + 63) / 64 > 65535 || flash_smem(d) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_flash_d<float>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                        causal, sm_scale, sms, stream);
+                                        causal, window, sm_scale, sms, stream);
     case 1:
       return (int)launch_flash_d<__half>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                         causal, sm_scale, sms, stream);
+                                         causal, window, sm_scale, sms,
+                                         stream);
     case 2:
       return (int)launch_flash_d<__nv_bfloat16>(q, k, v, o, B, S, S_kv, H, Hk,
-                                                d, causal, sm_scale, sms,
-                                                stream);
+                                                d, causal, window, sm_scale,
+                                                sms, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -71,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                           i, f, i, p]
+                                           i, i, f, i, p]
     lib.flash_attention_launch.restype = i
     lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
                                             i, i, f, i, p]
@@ -121,9 +121,10 @@ def _check_heads(what, h, hk, d, dk, dv):
                          f"{dv})")
 
 
-def _launch_flash(q, k, v, causal, sm_scale):
+def _launch_flash(q, k, v, causal, window, sm_scale):
     """K6 on contiguous ``(B, S, H, D)`` / ``(B, S_kv, Hk, D)`` CUDA
-    tensors; the output is ``(B, S, H, D)`` in q's dtype."""
+    tensors, masked to the sliding window where ``window > 0``; the
+    output is ``(B, S, H, D)`` in q's dtype."""
     what = "flash_attention"
     _check_cuda(what, q, k, v)
     b, s, h, d = q.shape
@@ -139,7 +140,8 @@ def _launch_flash(q, k, v, causal, sm_scale):
     rc = device.launch(
         q.device, _lib().flash_attention_launch, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s_kv,
-        h, hk, d, int(bool(causal)), float(sm_scale), sm_count(q.device.index),
+        h, hk, d, int(bool(causal)), int(window), float(sm_scale),
+        sm_count(q.device.index),
     )
     _raise_on(rc, what)
     flash_attention.launches += 1
@@ -232,7 +234,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
     if _device("flash_attention", q, k, v).type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     return _launch_flash(q[:, :, None], k[:, :, None], v[:, :, None],
-                         causal, sm_scale)[:, :, 0]
+                         causal, 0, sm_scale)[:, :, 0]
 
 
 flash_attention.launches = 0
@@ -241,11 +243,13 @@ flash_attention.launches = 0
 def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
                         q_block: int = 512, kv_block: int = 512):
     """``flash_mha``'s function: q ``(B, S, H, D)`` over k, v
-    ``(B, S_kv, Hk, D)``, scale ``D**-0.5`` → ``(B, S, H, D)``. On the
-    card ``window > 0`` (sliding-window attention) is not ported yet and
-    raises ``NotImplementedError``; on the CPU the plain version takes
-    it. ``q_block``/``kv_block`` are the plain version's blocks."""
+    ``(B, S_kv, Hk, D)``, scale ``D**-0.5`` → ``(B, S, H, D)``.
+    ``window > 0`` masks keys ``j <= i - window`` (gemma3's sliding
+    window, the reference's ``flash._mask``). ``q_block``/``kv_block`` are
+    the plain version's blocks."""
     _check_blocks(q_block, kv_block)
+    if int(window) < 0:
+        raise ValueError(f"flash_attention_gqa: window {window} < 0")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or (
             k.shape[:3] != v.shape[:3]):
         raise ValueError("flash_attention_gqa: q must be (B, S, H, D) and "
@@ -257,11 +261,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
     if _device("flash_attention_gqa", q, k, v).type == "cpu":
         return flash_gqa_ref(q, k, v, causal=causal, window=int(window),
                              q_block=q_block, kv_block=kv_block)
-    if window:
-        raise NotImplementedError(
-            "flash_attention_gqa: sliding-window attention on the card is "
-            "not ported yet (ROADMAP queue 1, item 12d)")
-    return _launch_flash(q, k, v, causal, q.shape[3] ** -0.5)
+    return _launch_flash(q, k, v, causal, int(window), q.shape[3] ** -0.5)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float = 1.0,

@@ -4,9 +4,12 @@ frontier (DESIGN.md §3.2).
 The port of ``src/repro/launch/serve.py``. The cache ``lengths`` vector
 is the per-sequence RAW frontier — append (store at t) / attend (load
 <= t) — and each decode step advances every frontier by one; on the
-card each step launches the decode kernel K7 once per layer. A Mamba-1
-stack (falcon-mamba-7b) carries a recurrent state per layer instead and
-launches no attention kernel. Greedy sampling, for determinism.
+card each step launches the decode kernel K7 once per layer (gemma3-4b's
+local layers over a ring of 1024 positions). A Mamba-1 stack
+(falcon-mamba-7b) carries a recurrent state per layer instead and
+launches no attention kernel; zamba2-7b's Mamba-2 layers carry theirs
+and its shared attention block launches K7 once per application (13 a
+step). Greedy sampling, for determinism.
 
 Run on the card (``PYTHONPATH=src``)::
 
@@ -16,6 +19,12 @@ Run on the card (``PYTHONPATH=src``)::
         --prompt-len 128 --max-new 32
     python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \\
         --n-layers 12 --batch 4 --prompt-len 128 --max-new 32
+    python -m repro_torch.launch.serve --arch zamba2-7b --batch 4 \\
+        --prompt-len 128 --max-new 32
+    python -m repro_torch.launch.serve --arch gemma3-4b --batch 4 \\
+        --prompt-len 128 --max-new 32
+
+zamba2-7b (27.00 GB in float32) and gemma3-4b (15.52 GB) run whole.
 """
 
 from __future__ import annotations

@@ -8,8 +8,7 @@ launches the flash attention kernel K6
 (``kernels/attention/csrc/attention.cu``, the twin of the TPU kernel the
 reference's docstring names); on the CPU it runs the plain blocked loop
 (``kernels/attention/ref.flash_gqa_ref``). ``window > 0`` (gemma3's
-sliding window) runs only on the CPU in this slice and raises
-``NotImplementedError`` on the card.
+sliding window) masks keys ``j <= i - window`` on either.
 
 The reference's custom VJP (its backward by block recomputation) is
 training work and waits for ROADMAP queue 1, item 13; the reference has

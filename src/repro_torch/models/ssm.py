@@ -1,9 +1,10 @@
-"""Mamba-1 blocks: the selective scan over a sequence on K8, and the
-recurrent decode step.
+"""Mamba-1 and Mamba-2 blocks: the selective scan over a sequence on K8
+(Mamba-1), the SSD form in plain torch (Mamba-2), and the recurrent
+decode steps.
 
-The port of the Mamba-1 half of ``src/repro/models/ssm.py``. Parameters
-are a dict with the reference's key names and shapes. Over a sequence
-(S > 1), ``_mamba1_chunked`` computes the input projections, B, C and
+The port of ``src/repro/models/ssm.py``. Parameters are a dict with the
+reference's key names and shapes. Over a sequence (S > 1), Mamba-1's
+``_mamba1_chunked`` computes the input projections, B, C and
 the step sizes for the whole sequence and runs the scan as one call of
 ``kernels.ssm_scan.selective_scan``: one launch of K8 per layer on the
 card, its plain version on the CPU. The reference instead loops over
@@ -13,9 +14,15 @@ the next); the kernel walks all positions itself, so the port takes any
 S, where the reference needs S to divide by the chunk. Decode (S = 1) is
 the O(1) recurrent step on the carried ``(conv window, h state)``.
 
-The Mamba-2 (SSD) form that zamba2-7b's hybrid stack uses has no kernel
-and is not ported yet: it raises ``NotImplementedError`` naming ROADMAP
-queue 1, item 12b.
+Mamba-2 (SSD, zamba2-7b's hybrid stack) has a scalar decay per head of
+``MAMBA2_HEAD`` channels. Over a sequence, ``_mamba2_chunked`` is the
+reference's quadratic-in-chunk form: per chunk, per-head ``(C, C)`` decay
+matrices for the positions inside it and the carried ``(nh, 64, n)`` state
+for those before, the log-decays clamped at -30 as in the reference. The
+reference runs it under JAX with no Pallas kernel, so it is plain torch on
+the card too (einsums over whole tensors, no loop over heads). As in the
+reference, S must divide by the chunk where it exceeds it: the port raises
+``ValueError`` naming the chunk where the reference fails on a reshape.
 """
 
 from __future__ import annotations
@@ -25,15 +32,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan.kernel import selective_scan
-from repro_torch.models.layers import Dtypes, _init
+from repro_torch.models.layers import Dtypes, _init, rms_norm
 
-
-def _require_mamba1(cfg: ArchConfig) -> None:
-    if cfg.ssm != "mamba1":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.ssm} (SSD) block of zamba2's hybrid stack "
-            "is not ported yet (ROADMAP queue 1, item 12b); the port runs "
-            "Mamba-1")
+MAMBA2_HEAD = 64  # channels a Mamba-2 head (src/repro/models/ssm.py:27)
 
 
 # ---------------------------------------------------------------------------
@@ -42,25 +43,40 @@ def _require_mamba1(cfg: ArchConfig) -> None:
 
 
 def mamba_init(generator, cfg: ArchConfig, dt: Dtypes, device):
-    """Mamba-1 parameters; ``a_log`` is the deterministic S4D-real init
-    ``log(1..n)`` for every channel, not a draw."""
-    _require_mamba1(cfg)
+    """Mamba-1 parameters, ``a_log`` the deterministic S4D-real init
+    ``log(1..n)`` for every channel; or Mamba-2's, one decay, step bias
+    and skip a head, B, C and the steps projected from the block input."""
     d = cfg.d_model
     di = cfg.expand * d
     n = cfg.ssm_state
     f32 = dict(dtype=torch.float32, device=device)
-    a_log = torch.log(torch.arange(1, n + 1, **f32)).expand(di, n)
-    return {
+    p = {
         "w_in": _init(generator, (d, 2 * di), d ** -0.5, dt.param, device),
         "conv_w": _init(generator, (cfg.d_conv, di), 0.5, dt.param, device),
         "conv_b": torch.zeros(di, dtype=dt.param, device=device),
         "w_out": _init(generator, (di, d), di ** -0.5, dt.param, device),
-        "a_log": a_log.contiguous(),
-        "w_bc": _init(generator, (di, 2 * n), di ** -0.5, dt.param, device),
-        "w_dt": _init(generator, (di, 1), di ** -0.5, dt.param, device),
-        "dt_bias": torch.zeros(di, **f32),
-        "d_skip": torch.ones(di, **f32),
     }
+    if cfg.ssm == "mamba1":
+        a_log = torch.log(torch.arange(1, n + 1, **f32)).expand(di, n)
+        p.update({
+            "a_log": a_log.contiguous(),
+            "w_bc": _init(generator, (di, 2 * n), di ** -0.5, dt.param,
+                          device),
+            "w_dt": _init(generator, (di, 1), di ** -0.5, dt.param, device),
+            "dt_bias": torch.zeros(di, **f32),
+            "d_skip": torch.ones(di, **f32),
+        })
+    else:
+        nh = di // MAMBA2_HEAD
+        p.update({
+            "a_log": torch.zeros(nh, **f32),
+            "w_bc": _init(generator, (d, 2 * n), d ** -0.5, dt.param, device),
+            "w_dt": _init(generator, (d, nh), d ** -0.5, dt.param, device),
+            "dt_bias": torch.zeros(nh, **f32),
+            "d_skip": torch.ones(nh, **f32),
+            "norm_scale": torch.zeros(di, dtype=dt.param, device=device),
+        })
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -119,15 +135,79 @@ def _mamba1_step(p, xi_t, h):
 
 
 # ---------------------------------------------------------------------------
+# mamba2 (SSD): quadratic in the chunk, per-head (C, C) decay matrices
+# ---------------------------------------------------------------------------
+
+
+def _bc_dt(p, xr, n):
+    """Mamba-2's B, C ``(..., n)`` and step sizes ``(..., nh)``, float32,
+    projected from the block input ``xr``."""
+    bc = xr @ p["w_bc"].to(xr.dtype)
+    dt_ = F.softplus((xr @ p["w_dt"].to(xr.dtype)).float() + p["dt_bias"])
+    return bc[..., :n].float(), bc[..., n:].float(), dt_
+
+
+def _mamba2_chunked(p, x_resid, xi, cfg: ArchConfig, h0, chunk: int):
+    """x_resid ``(B, S, d)``, the block input B, C and the steps are
+    projected from; xi ``(B, S, di)`` post-conv/silu; h0 ``(B, nh, 64,
+    n)``. Returns ``(y (B, S, di) float32, h_final)``."""
+    b, s, di = xi.shape
+    n = cfg.ssm_state
+    nh, hd = di // MAMBA2_HEAD, MAMBA2_HEAD
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"_mamba2_chunked: S={s} is not a multiple of the "
+                         f"chunk {c} (cfg.ssm_chunk), as the reference's "
+                         f"chunked form needs")
+    a_neg = -torch.exp(p["a_log"])  # (nh,)
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=xi.device))
+    h, ys = h0, []
+    for c0 in range(0, s, c):
+        bmat, cmat, dt_ = _bc_dt(p, x_resid[:, c0:c0 + c], n)  # dt_ (B, C, nh)
+        xf = xi[:, c0:c0 + c].reshape(b, c, nh, hd).float()
+        logcum = torch.cumsum(a_neg * dt_, dim=1)  # (B, C, nh), <= 0
+        # inside the chunk: y[t] = sum_{j<=t} exp(lc_t - lc_j) (C_t.B_j) dt_j
+        # x_j; exp of the masked upper triangle may be inf, so it is
+        # replaced (where), never multiplied by the mask
+        ldiff = torch.clamp(logcum[:, :, None, :] - logcum[:, None, :, :],
+                            min=-30.0)  # (B, C, C, nh): t rows, j columns
+        w = torch.where(tri[None, :, :, None], torch.exp(ldiff), 0.0)
+        scores = torch.einsum("btn,bjn->btj", cmat, bmat)
+        wmat = w * scores[..., None] * dt_[:, None, :, :]
+        y_intra = torch.einsum("btjh,bjhp->bthp", wmat, xf)
+        # the carried state's contribution
+        decay_t = torch.exp(torch.clamp(logcum, min=-30.0))
+        y_inter = torch.einsum("btn,bhpn,bth->bthp", cmat, h, decay_t)
+        # h' = decay_C h + sum_j exp(lc_C - lc_j) dt_j x_j B_j
+        decay_last = torch.exp(torch.clamp(logcum[:, -1:, :] - logcum,
+                                           min=-30.0)) * dt_
+        h = (torch.exp(torch.clamp(logcum[:, -1], min=-30.0))[:, :, None, None]
+             * h + torch.einsum("bjh,bjhp,bjn->bhpn", decay_last, xf, bmat))
+        ys.append((y_intra + y_inter).reshape(b, c, di))
+    return torch.cat(ys, dim=1), h
+
+
+def _mamba2_step(p, xr_t, xh_t, h, n):
+    """One recurrent step: xr_t ``(B, d)``, xh_t ``(B, nh, 64)``, h ``(B,
+    nh, 64, n)`` → ``(y (B, nh, 64), h_new)``."""
+    bmat, cmat, dt_ = _bc_dt(p, xr_t, n)  # dt_ (B, nh)
+    a = torch.exp(-torch.exp(p["a_log"])[None] * dt_)
+    bx = torch.einsum("bh,bhp,bn->bhpn", dt_, xh_t.float(), bmat)
+    h_new = a[..., None, None] * h + bx
+    y = torch.einsum("bhpn,bn->bhp", h_new, cmat)
+    return y, h_new
+
+
+# ---------------------------------------------------------------------------
 # public block API
 # ---------------------------------------------------------------------------
 
 
 def mamba_apply(p, x, cfg: ArchConfig, *, state=None):
     """x ``(B, S, d)``. ``state``: None for a prompt from a zero state,
-    else a dict with ``conv`` ``(B, K-1, di)`` and ``h`` ``(B, di, n)``.
-    Returns ``(y, new_state)``."""
-    _require_mamba1(cfg)
+    else a dict with ``conv`` ``(B, K-1, di)`` and ``h`` (``(B, di, n)``
+    for Mamba-1, ``(B, nh, 64, n)`` for Mamba-2). Returns ``(y,
+    new_state)``."""
     b, s, d = x.shape
     di = cfg.expand * d
     n = cfg.ssm_state
@@ -138,14 +218,30 @@ def mamba_apply(p, x, cfg: ArchConfig, *, state=None):
     xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
     xi = F.silu(xi)
 
-    h0 = (torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-          if state is None else state["h"])
-    if s == 1:
-        y, new_h = _mamba1_step(p, xi[:, 0], h0)
-        y = y[:, None, :]
+    if cfg.ssm == "mamba1":
+        h0 = (torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+              if state is None else state["h"])
+        if s == 1:
+            y, new_h = _mamba1_step(p, xi[:, 0], h0)
+            y = y[:, None, :]
+        else:
+            y, new_h = _mamba1_chunked(p, xi, cfg, h0, cfg.ssm_chunk)
+        y = y + xi.float() * p["d_skip"][None, None, :]
     else:
-        y, new_h = _mamba1_chunked(p, xi, cfg, h0, cfg.ssm_chunk)
-    y = y + xi.float() * p["d_skip"][None, None, :]
+        nh = di // MAMBA2_HEAD
+        h0 = (torch.zeros((b, nh, MAMBA2_HEAD, n), dtype=torch.float32,
+                          device=x.device)
+              if state is None else state["h"])
+        if s == 1:
+            y, new_h = _mamba2_step(
+                p, x[:, 0], xi[:, 0].reshape(b, nh, MAMBA2_HEAD), h0, n)
+            y = y.reshape(b, 1, di)
+        else:
+            y, new_h = _mamba2_chunked(p, x, xi, cfg, h0, cfg.ssm_chunk)
+        y = y + p["d_skip"].repeat_interleave(MAMBA2_HEAD)[None, None, :] * (
+            xi.float())
+        # the gated norm, before silu(z)
+        y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps).float()
     y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"].to(x.dtype)
     return y, {"conv": new_conv, "h": new_h}
 
@@ -153,12 +249,14 @@ def mamba_apply(p, x, cfg: ArchConfig, *, state=None):
 def mamba_init_state(cfg: ArchConfig, batch: int, *, device,
                      dtype=torch.float32):
     """The zeroed decode state: ``conv`` ``(batch, K-1, di)`` in
-    ``dtype`` and ``h`` ``(batch, di, n)`` float32."""
-    _require_mamba1(cfg)
+    ``dtype`` and ``h`` float32, ``(batch, di, n)`` for Mamba-1 and
+    ``(batch, nh, 64, n)`` for Mamba-2."""
     di = cfg.expand * cfg.d_model
+    n = cfg.ssm_state
+    h = ((batch, di, n) if cfg.ssm == "mamba1"
+         else (batch, di // MAMBA2_HEAD, MAMBA2_HEAD, n))
     return {
         "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype,
                             device=device),
-        "h": torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32,
-                         device=device),
+        "h": torch.zeros(h, dtype=torch.float32, device=device),
     }

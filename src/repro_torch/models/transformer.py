@@ -1,10 +1,11 @@
 """Model assembly, the serving subset.
 
 The port of the reference's model API (``src/repro/models/transformer.py``)
-for the decoders without MLA, an encoder, a sliding window or a hybrid
-stack: the dense GQA ones (qwen3-14b, starcoder2-7b, internvl2-76b's
-backbone), the mixture-of-experts ones (phi3.5-moe, moonshot) and the
-pure Mamba-1 one (falcon-mamba-7b):
+for the decoders without MLA or an encoder: the dense GQA ones
+(qwen3-14b, starcoder2-7b, internvl2-76b's backbone, and gemma3-4b with
+its sliding-window layers), the mixture-of-experts ones (phi3.5-moe,
+moonshot), the pure Mamba-1 one (falcon-mamba-7b) and the Mamba-2 hybrid
+(zamba2-7b):
 
   init_params(generator, cfg, dt, device=)     -> params (layer-stacked)
   forward_hidden(params, tokens, cfg, dt)      -> final-normed hidden states
@@ -17,14 +18,20 @@ weights stacked over a leading layer axis (``layers.attn.wq`` is
 ``(L, d, nh·hd)``), so ``models/convert.py`` carries the reference's
 weights across leaf by leaf. The layers run as a Python loop over views
 of the stacks (the reference's ``lax.scan``; its remat and activation
-sharding do nothing on one card and have no counterpart here).
+sharding do nothing on one card and have no counterpart here). gemma3's
+local and global layers and zamba2's segments run in the same loop.
 
 Full-sequence attention goes through ``flash.flash_mha``, which launches
 the flash attention kernel K6 on the card; the decode step's attention
 goes through ``kernels.attention.decode_attention_gqa``, the decode
-kernel K7, one launch per layer per step. A Mamba-1 layer's scan over a
-sequence launches the selective-scan kernel K8 once (``models.ssm``); its
-decode step is the plain recurrence. MoE layers take the reference's
+kernel K7, one launch per layer per step. gemma3's local layers pass
+their window to K6 and keep a ring of ``min(window, max_seq)`` positions
+for K7. A Mamba-1 layer's scan over a sequence launches the
+selective-scan kernel K8 once (``models.ssm``); its decode step is the
+plain recurrence. A Mamba-2 layer is plain torch both ways (the reference
+has no kernel for it); zamba2's one shared attention block runs after
+every ``shared_attn_every`` of them, on K6 and K7 like a dense layer,
+with a KV cache for each of its applications. MoE layers take the reference's
 capacity path, in plain torch, as the reference's serving does; the
 grouped matmul kernel K9 runs on the dropless path
 (``layers.moe_apply(use_kernel=True)``). On the CPU every kernel runs its
@@ -52,23 +59,20 @@ Dtypes = L.Dtypes
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is a GQA decoder
-    (dense or MoE) without a sliding window, or a pure Mamba-1 stack: the
-    families the port serves."""
-    if cfg.shared_attn_every or cfg.ssm not in (None, "mamba1"):
-        what, item = "the Mamba-2 hybrid stack (zamba2)", "12b"
-    elif cfg.ssm is not None:
+    (dense, sliding-window or MoE), a Mamba-1 stack or the Mamba-2
+    hybrid: the families the port serves."""
+    if cfg.ssm is not None:
         return
-    elif cfg.attn_type != "gqa":
-        what, item = f"{cfg.attn_type} attention", "12d"
+    if cfg.attn_type != "gqa":
+        what = f"{cfg.attn_type} attention"
     elif cfg.enc_dec:
-        what, item = "the encoder-decoder stack", "12d"
-    elif cfg.sliding_window:
-        what, item = "sliding-window attention and its ring cache", "12d"
+        what = "the encoder-decoder stack"
     else:
         return
     raise NotImplementedError(
         f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1, item "
-        f"{item}); the port serves GQA decoders (dense or MoE) and Mamba-1")
+        f"12d); the port serves GQA decoders (dense, sliding-window or "
+        f"MoE), Mamba-1 and the Mamba-2 hybrid")
 
 
 def layer_params(stacked, i: int):
@@ -82,11 +86,11 @@ def layer_params(stacked, i: int):
 # ---------------------------------------------------------------------------
 
 
-def _layer_init(generator, cfg: ArchConfig, dt: Dtypes, device):
-    """One layer: a Mamba-1 block for an SSM stack, else attention and an
-    MLP (``"moe"`` in place of ``"mlp"`` for an MoE config)."""
+def _layer_init(generator, cfg: ArchConfig, dt: Dtypes, device, kind: str):
+    """One layer: a Mamba block (``kind="ssm"``), or attention and an MLP
+    (``"attn"``; ``"moe"`` in place of ``"mlp"`` for an MoE config)."""
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dt.param, device=device)
-    if cfg.ssm is not None:
+    if kind == "ssm":
         return {"attn_norm": zeros(),
                 "ssm": S.mamba_init(generator, cfg, dt, device)}
     p = {
@@ -119,7 +123,8 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     """Random parameters drawn from ``generator``, which must live on
     ``device``. The layers are drawn one at a time into preallocated
     stacks, so beside the model only one layer's weights exist at once
-    (qwen3-14b in float32 is 59.07 GB, falcon-mamba-7b 28.02 GB)."""
+    (qwen3-14b in float32 is 59.07 GB, falcon-mamba-7b 28.02 GB).
+    zamba2's shared attention block is drawn once, after the layers."""
     dev = resolve_device(device, "init_params")
     check_supported(cfg)
     if generator.device.type != dev.type:
@@ -133,13 +138,16 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = L._init(generator, (cfg.d_model, cfg.vocab),
                                     cfg.d_model ** -0.5, dt.param, dev)
-    layer = _layer_init(generator, cfg, dt, dev)
+    kind = "ssm" if cfg.ssm is not None else "attn"
+    layer = _layer_init(generator, cfg, dt, dev, kind)
     stacked = _empty_stack(layer, cfg.n_layers)
     _stack_into(stacked, 0, layer)
     del layer
     for i in range(1, cfg.n_layers):
-        _stack_into(stacked, i, _layer_init(generator, cfg, dt, dev))
+        _stack_into(stacked, i, _layer_init(generator, cfg, dt, dev, kind))
     params["layers"] = stacked
+    if cfg.shared_attn_every:
+        params["shared_attn"] = _layer_init(generator, cfg, dt, dev, "attn")
     return params
 
 
@@ -156,10 +164,12 @@ def _ffn(p, h, cfg: ArchConfig):
     return L.mlp_apply(p["mlp"], h, cfg)
 
 
-def _attn_mlp_block(p, x, cfg: ArchConfig, *, positions, inference=False):
-    """Pre-norm attention + MLP/MoE."""
+def _attn_mlp_block(p, x, cfg: ArchConfig, *, positions, window=0,
+                    inference=False):
+    """Pre-norm attention + MLP/MoE; ``window`` is the layer's sliding
+    window (0 = full attention)."""
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    x = x + _gqa_train(p["attn"], h, cfg, positions, inference)
+    x = x + _gqa_train(p["attn"], h, cfg, positions, window, inference)
     h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + _ffn(p, h, cfg)
 
@@ -180,16 +190,26 @@ def _qkv(p, h, cfg: ArchConfig, positions):
     return q, k, v
 
 
-def _gqa_train(p, h, cfg: ArchConfig, positions, inference=False):
+def _gqa_train(p, h, cfg: ArchConfig, positions, window=0, inference=False):
     """Full-sequence causal GQA through blocked flash attention (K6 on
-    the card). The reference's per-layer sliding window
-    (``_window_schedule``) comes with item 12d: ``check_supported``
-    rejects every windowed configuration, so here it is always 0."""
+    the card), masked to ``window`` keys where it is > 0."""
     b, s, _ = h.shape
     q, k, v = _qkv(p, h, cfg, positions)
-    out = flash_mha(q, k, v, causal=True, skip_masked_blocks=inference)
+    out = flash_mha(q, k, v, causal=True, window=window,
+                    skip_masked_blocks=inference)
     hd = cfg.resolved_head_dim
     return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(h.dtype)
+
+
+def _window_schedule(cfg: ArchConfig) -> list[int]:
+    """Each layer's window, 0 for global attention: gemma3's every
+    ``(local_global_ratio + 1)``-th layer is global, the others local at
+    ``sliding_window``; every other config's are all 0."""
+    if cfg.sliding_window and cfg.local_global_ratio:
+        period = cfg.local_global_ratio + 1
+        return [0 if (i + 1) % period == 0 else cfg.sliding_window
+                for i in range(cfg.n_layers)]
+    return [0] * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -213,30 +233,55 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
     check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg, dt, frontend)
-    if cfg.ssm is not None:
-        x = _scan_ssm(params["layers"], x, cfg)
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if cfg.shared_attn_every:
+        x = _hybrid_forward(params, x, cfg, positions, inference)
+    elif cfg.ssm is not None:
+        x = _scan_ssm(params["layers"], x, cfg, range(cfg.n_layers))
     else:
-        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         x = _scan_attn(params["layers"], x, cfg, positions, inference)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def _scan_attn(stacked, x, cfg: ArchConfig, positions, inference=False):
-    for i in range(cfg.n_layers):
+    for i, window in enumerate(_window_schedule(cfg)):
         x = _attn_mlp_block(layer_params(stacked, i), x, cfg,
-                            positions=positions, inference=inference)
+                            positions=positions, window=window,
+                            inference=inference)
     return x
 
 
-def _scan_ssm(stacked, x, cfg: ArchConfig):
-    """Pre-norm Mamba-1 layers over the whole sequence from zero states:
-    one K8 launch per layer on the card."""
-    for i in range(cfg.n_layers):
+def _scan_ssm(stacked, x, cfg: ArchConfig, layers):
+    """Pre-norm Mamba layers ``layers`` over the whole sequence from zero
+    states: one K8 launch per Mamba-1 layer on the card."""
+    for i in layers:
         lp = layer_params(stacked, i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         y, _ = S.mamba_apply(lp["ssm"], h, cfg)
         x = x + y
     return x
+
+
+def _segments(cfg: ArchConfig):
+    """zamba2's Mamba layers, as ranges: ``n_layers // shared_attn_every``
+    segments of ``shared_attn_every``, each followed by the shared block,
+    then the remainder (empty where none)."""
+    every = cfg.shared_attn_every
+    n_seg = cfg.n_layers // every
+    return ([range(i * every, (i + 1) * every) for i in range(n_seg)],
+            range(n_seg * every, cfg.n_layers))
+
+
+def _hybrid_forward(params, x, cfg: ArchConfig, positions, inference=False):
+    """zamba2: each segment of Mamba-2 layers, then the one shared
+    attention + MLP block at full attention (one K6 launch each), then
+    the remaining layers."""
+    segments, rest = _segments(cfg)
+    for seg in segments:
+        x = _scan_ssm(params["layers"], x, cfg, seg)
+        x = _attn_mlp_block(params["shared_attn"], x, cfg,
+                            positions=positions, inference=inference)
+    return _scan_ssm(params["layers"], x, cfg, rest)
 
 
 def _w_out(params, cfg: ArchConfig):
@@ -250,20 +295,39 @@ def _w_out(params, cfg: ArchConfig):
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dt: Dtypes = L.FP32, *, device="cuda"):
-    """The zeroed decode cache: ``{"kv": (k, v)}``, each ``(L, batch,
-    max_seq, nk, hd)``, or for a Mamba-1 stack ``{"ssm": {"conv": (L,
-    batch, K-1, di), "h": (L, batch, di, n)}}``, both float32 as in the
-    reference (which sizes no KV cache for it)."""
+    """The zeroed decode cache, as the reference's:
+
+    - ``{"kv": (k, v)}``, each ``(L, batch, max_seq, nk, hd)``;
+    - gemma3: ``{"local_kv": ..., "global_kv": ...}``, the local layers'
+      rings of ``min(window, max_seq)`` positions and the global layers'
+      ``max_seq``, each ``(layers, batch, positions, nk, hd)``;
+    - a Mamba stack: ``{"ssm": {"conv": (L, batch, K-1, di), "h": (L,
+      batch, di, n)}}`` (Mamba-1; Mamba-2's ``h`` is ``(L, batch, nh, 64,
+      n)``), float32; zamba2 adds ``"shared_kv"``, ``(applications,
+      batch, max_seq, nk, hd)`` each.
+    """
     dev = resolve_device(device, "init_cache")
     check_supported(cfg)
+
+    def kv(n, positions):
+        shape = (n, batch, positions, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return (torch.zeros(shape, dtype=dt.compute, device=dev),
+                torch.zeros(shape, dtype=dt.compute, device=dev))
+
     if cfg.ssm is not None:
         st = S.mamba_init_state(cfg, cfg.n_layers * batch, device=dev)
-        return {"ssm": {k: v.reshape((cfg.n_layers, batch) + v.shape[1:])
-                        for k, v in st.items()}}
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"kv": (torch.zeros(shape, dtype=dt.compute, device=dev),
-                   torch.zeros(shape, dtype=dt.compute, device=dev))}
+        cache = {"ssm": {k: v.reshape((cfg.n_layers, batch) + v.shape[1:])
+                         for k, v in st.items()}}
+        if cfg.shared_attn_every:
+            cache["shared_kv"] = kv(cfg.n_layers // cfg.shared_attn_every,
+                                    max_seq)
+        return cache
+    if cfg.sliding_window and cfg.local_global_ratio:
+        n_global = _window_schedule(cfg).count(0)
+        return {"local_kv": kv(cfg.n_layers - n_global,
+                               min(cfg.sliding_window, max_seq)),
+                "global_kv": kv(n_global, max_seq)}
+    return {"kv": kv(cfg.n_layers, max_seq)}
 
 
 def _decode_gqa(p, x, cfg, cache_kv, lengths, *, positions_t):
@@ -299,8 +363,10 @@ def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
         raise NotImplementedError("decode_step: cross attention is not "
                                   "ported yet (ROADMAP queue 1, item 12d)")
     x = params["embed"][tokens.long()].to(dt.compute)
-    if cfg.ssm is not None:
-        x = _ssm_decode(params, x, cache, cfg)
+    if cfg.shared_attn_every:
+        x = _hybrid_decode(params, x, cache, lengths, cfg, lengths[:, None])
+    elif cfg.ssm is not None:
+        x = _ssm_decode(params, x, cache, cfg, range(cfg.n_layers))
     else:
         x = _dense_decode(params, x, cache, lengths, cfg, lengths[:, None])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -308,25 +374,53 @@ def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
     return logits, cache
 
 
+def _attn_mlp_decode(p, x, cfg, cache_kv, lengths, positions_t):
+    """One pre-norm attention + MLP/MoE layer's step against its KV cache
+    (updated in place)."""
+    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    a, _ = _decode_gqa(p["attn"], h, cfg, cache_kv, lengths,
+                       positions_t=positions_t)
+    y = x + a
+    h = L.rms_norm(y, p["mlp_norm"], cfg.norm_eps)
+    return y + _ffn(p, h, cfg)
+
+
 def _dense_decode(params, x, cache, lengths, cfg, positions_t):
-    """The uniform ``"kv"`` stack, one layer at a time."""
-    ck, cv = cache["kv"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        a, _ = _decode_gqa(lp["attn"], h, cfg, (ck[i], cv[i]), lengths,
-                           positions_t=positions_t)
-        y = x + a
-        h = L.rms_norm(y, lp["mlp_norm"], cfg.norm_eps)
-        x = y + _ffn(lp, h, cfg)
+    """The attention stack, one layer at a time: the uniform ``"kv"``
+    cache, or gemma3's interleaved local layers (each on its ring) and
+    global layers."""
+    if "kv" in cache:
+        caches = [(cache["kv"], i) for i in range(cfg.n_layers)]
+    else:
+        caches, n_local = [], 0
+        for i, window in enumerate(_window_schedule(cfg)):
+            caches.append((cache["local_kv"], n_local) if window else
+                          (cache["global_kv"], i - n_local))
+            n_local += bool(window)
+    for i, ((ck, cv), j) in enumerate(caches):
+        x = _attn_mlp_decode(layer_params(params["layers"], i), x, cfg,
+                             (ck[j], cv[j]), lengths, positions_t)
     return x
 
 
-def _ssm_decode(params, x, cache, cfg):
-    """The Mamba-1 stack, one recurrent step a layer; each layer's conv
-    window and state are overwritten in place with the new ones."""
+def _hybrid_decode(params, x, cache, lengths, cfg, positions_t):
+    """zamba2: each segment's Mamba-2 steps, then the shared block
+    against the KV cache of that application (one K7 launch), then the
+    remaining layers; states and caches updated in place."""
+    sk, sv = cache["shared_kv"]
+    segments, rest = _segments(cfg)
+    for app, seg in enumerate(segments):
+        x = _ssm_decode(params, x, cache, cfg, seg)
+        x = _attn_mlp_decode(params["shared_attn"], x, cfg,
+                             (sk[app], sv[app]), lengths, positions_t)
+    return _ssm_decode(params, x, cache, cfg, rest)
+
+
+def _ssm_decode(params, x, cache, cfg, layers):
+    """Mamba layers ``layers``, one recurrent step each; each layer's
+    conv window and state are overwritten in place with the new ones."""
     conv, hs = cache["ssm"]["conv"], cache["ssm"]["h"]
-    for i in range(cfg.n_layers):
+    for i in layers:
         lp = layer_params(params["layers"], i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         y, st = S.mamba_apply(lp["ssm"], h, cfg,

@@ -107,6 +107,33 @@ def test_flash_mha_ragged_matches_attention_ref(s, s_kv, causal, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("s,window,block,causal", [
+    (40, 16, 8, True), (40, 16, 40, True), (96, 32, 16, True),
+    (40, 16, 8, False), (60, 7, 12, True),
+])
+def test_flash_mha_window_matches_reference(s, window, block, causal):
+    """gemma3's sliding window (keys j > i - window) against the
+    reference's ``flash_mha``, at S a multiple of the blocks but not of
+    the window, so windows straddle blocks."""
+    b, h, hk, d = 2, 8, 4, 16
+    q, k, v = (_normal(30, b, s, h, d), _normal(31, b, s, hk, d),
+               _normal(32, b, s, hk, d))
+    want = ref_flash.flash_mha(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, window=window,
+                               q_block=block, kv_block=block)
+    got = flash.flash_mha(_t(q), _t(k), _t(v), causal=causal, window=window,
+                          q_block=block, kv_block=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    full = flash.flash_mha(_t(q), _t(k), _t(v), causal=causal)
+    assert not np.allclose(got.numpy(), full.numpy(), atol=ATOL)
+
+
+def test_flash_window_rejects_a_negative_window():
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention_gqa(x, x, x, window=-1)
+
+
 def test_decode_gqa_ref_matches_per_head_decode():
     """The model-layout plain version is the reference-signature one with
     each query head on its kv head."""

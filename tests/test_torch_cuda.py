@@ -1,9 +1,11 @@
 """Card-only tests of the port: the CUDA kernels (wave steps, hazard
 frontier, forwarding, ELL SpMV, histogram, flash and decode attention,
-selective scan, grouped expert matmul) against their plain torch
-versions, a reduced qwen3-14b's and falcon-mamba-7b's prefill and decode
-step and a reduced phi3.5-moe's prefill and dropless MoE layer on the
-card against the CPU, the main path on the card against the oracle (a speculative
+selective scan, grouped expert matmul; K6 also with the sliding window in
+every tile and K6/K7 at zamba2's D=112, K7 over a wrapped ring) against
+their plain torch versions, a reduced qwen3-14b's and falcon-mamba-7b's
+prefill and decode step, a reduced zamba2-7b's and gemma3-4b's prefill and
+teacher-forced decode, and a reduced phi3.5-moe's prefill and dropless MoE
+layer on the card against the CPU, the main path on the card against the oracle (a speculative
 and a streaming program included), the substrate ops, and the DU-kernel
 cross-checks of a WavePlan on the card.
 
@@ -13,6 +15,8 @@ present. On a machine with an H100 and ``nvcc``:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 This file imports only the port, so it runs where JAX is not installed.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -672,9 +676,13 @@ def test_flash_attention_gqa_kernel_matches_plain(cuda, dtype):
     assert attn.flash_attention.launches == before + 1
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        attn.flash_attention_gqa(q, k, v, window=16)
-    assert attn.flash_attention.launches == before + 1
+    # the sliding window runs on the card too (it raised before K6 had it)
+    got_w = attn.flash_attention_gqa(q, k, v, window=16)
+    want_w = flash_gqa_ref(q, k, v, causal=True, window=16)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 2
+    assert (got_w.float() - want_w.float()).abs().max().item() <= (
+        ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("lengths", [[1, 17, 33, 64], [0, 17, 33, 64]])
@@ -851,7 +859,22 @@ def test_flash_half_types(cuda, dtype, d):
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+def _flash_raw(cuda, q, k, v, causal, window, sms):
+    """K6 through the raw launcher with the SM count ``sms``, which picks
+    the tile up to D=128 (1: 8 warps of 16 rows; 10**6: 4 warps)."""
+    b, s, h, d = q.shape
+    s_kv, hk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    rc = attn._lib().flash_attention_launch(
+        0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+        s_kv, h, hk, d, int(causal), window, d ** -0.5, sms,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_both_tiles(cuda, d, causal):
     """Up to D=128 K6 takes 8 warps of 16 rows where the blocks fill the
@@ -864,14 +887,92 @@ def test_flash_both_tiles(cuda, d, causal):
                                                         device=cuda)
     want = flash_gqa_ref(q, k, v, causal=causal)
     for sms in (1, 10**6):
-        out = torch.empty_like(q)
-        rc = attn._lib().flash_attention_launch(
-            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-            s, s, h, hk, d, int(causal), d ** -0.5, sms,
-            torch.cuda.current_stream(cuda).cuda_stream)
-        torch.cuda.synchronize()
-        assert rc == 0
+        out = _flash_raw(cuda, q, k, v, causal, 0, sms)
         assert (out - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("d", [64, 112, 256])
+@pytest.mark.parametrize("window", [16, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_in_every_tile(cuda, d, window, causal):
+    """K6's sliding window (keys j > i - window) against the plain
+    version at a ragged S=1300, in each tile: 8 and 4 warps up to D=128
+    (forced by the SM count), D=256's one tile. Window 16 is narrower
+    than every tile of keys (whole tiles and warps skipped), 1024 spans
+    many."""
+    b, s, h, hk = 1, 1300, 4, 2
+    q = _randn(90, b, s, h, d, device=cuda)
+    k, v = _randn(91, b, s, hk, d, device=cuda), _randn(92, b, s, hk, d,
+                                                        device=cuda)
+    want = flash_gqa_ref(q, k, v, causal=causal, window=window)
+    for sms in ((1, 10**6) if d <= 128 else (132,)):
+        out = _flash_raw(cuda, q, k, v, causal, window, sms)
+        assert (out - want).abs().max().item() <= ATTN_TOL[torch.float32]
+    before = attn.flash_attention.launches
+    got = attn.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 1
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+def test_flash_window_rows_with_no_key_average_every_key(cuda):
+    """Non-causal with S >= S_kv + window: rows past S_kv - 1 + window
+    have no key inside their window, and the reference averages all S_kv
+    keys for them; K6 then skips no tile."""
+    q = _randn(93, 2, 200, 4, 64, device=cuda)
+    k, v = _randn(94, 2, 50, 2, 64, device=cuda), _randn(95, 2, 50, 2, 64,
+                                                         device=cuda)
+    got = attn.flash_attention_gqa(q, k, v, causal=False, window=16)
+    want = flash_gqa_ref(q, k, v, causal=False, window=16)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+    mean = v.mean(dim=1).repeat_interleave(2, dim=1)  # (B, H, D)
+    assert (got[:, -1] - mean).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+def test_flash_zamba2_shared_block_prefill_shape(cuda):
+    """zamba2-7b's shared attention at the serve prefill: B=4, S=128,
+    32 query heads over 32 kv heads of 112 (14 of the DMAX-128 tile's 16
+    k-steps; the last n-tiles zero-filled)."""
+    q = _randn(96, 4, 128, 32, 112, device=cuda)
+    k, v = _randn(97, 4, 128, 32, 112, device=cuda), _randn(
+        98, 4, 128, 32, 112, device=cuda)
+    got = attn.flash_attention_gqa(q, k, v, causal=True)
+    want = flash_gqa_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("lengths", [[1, 60, 160, 161], [0, 7, 100, 300]])
+def test_decode_rep1_d112(cuda, lengths):
+    """K7 at zamba2-7b's shared attention: one query head a kv head (32
+    over 32), D=112, over the serve path's 161 positions."""
+    q, kc, vc, lens = _decode_case(cuda, 100, 4, 32, 32, 161, 112, lengths)
+    _check_decode(cuda, q, kc, vc, lens)
+
+
+def test_decode_over_a_wrapped_ring(cuda):
+    """gemma3's local layers: 100 positions written into a ring of 64
+    slots at ``pos % 64`` (the last 64 remain), lengths at and past the
+    capacity. K7 over the ring equals the plain version over it, and
+    attention over the last 64 positions in order: the ring's order does
+    not change the result beyond the sum order."""
+    b, h, hk, d, n, cap = 2, 8, 4, 256, 100, 64
+    q = _randn(110, b, h, d, device=cuda)
+    k_lin = _randn(111, b, n, hk, d, device=cuda)
+    v_lin = _randn(112, b, n, hk, d, device=cuda)
+    ring_k = torch.empty(b, cap, hk, d, device=cuda)
+    ring_v = torch.empty_like(ring_k)
+    for pos in range(n):
+        ring_k[:, pos % cap] = k_lin[:, pos]
+        ring_v[:, pos % cap] = v_lin[:, pos]
+    lens = torch.tensor([cap, n], dtype=torch.int32, device=cuda)
+    got = _check_decode(cuda, q, ring_k, ring_v, lens)
+    scale = d ** -0.5
+    last = decode_gqa_ref(q, k_lin[:, n - cap:].contiguous(),
+                          v_lin[:, n - cap:].contiguous(),
+                          torch.full((b,), cap, device=cuda), sm_scale=scale)
+    assert (got - last).abs().max().item() <= ATTN_TOL[torch.float32]
 
 
 def test_flash_qwen3_heads_many_tiles(cuda):
@@ -917,6 +1018,44 @@ def test_reduced_qwen3_on_card_matches_the_cpu(cuda):
     assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
     for a, b in zip(got_c["kv"], want_c["kv"]):
         assert torch.allclose(a.cpu(), b, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("name,depth,s", [
+    ("zamba2-7b", {"n_layers": 5}, 32), ("gemma3-4b", {"n_layers": 6}, 80),
+])
+def test_reduced_hybrid_and_windowed_on_card_match_the_cpu(cuda, name, depth,
+                                                            s):
+    """A reduced zamba2-7b (5 layers: two segments, each followed by the
+    shared block, then one layer) and gemma3-4b (6 layers: 5 local at
+    window 32, then 1 global) on the card against the CPU: the prefill
+    (K6 once a shared application or layer, the window on the local
+    ones) and S teacher-forced decode steps (K7 likewise a step; gemma3's
+    rings wrap after 32), at the reference's decode tolerance."""
+    cfg = dataclasses.replace(configs.get(name).reduced(), **depth)
+    attn_layers = (cfg.n_layers // cfg.shared_attn_every
+                   if cfg.shared_attn_every else cfg.n_layers)
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                        device="cpu")
+    card = convert.from_reference(convert.to_numpy(cpu), device=cuda)
+    tok = torch.from_numpy(
+        np.random.default_rng(5).integers(0, cfg.vocab, (2, s)))
+    n6 = attn.flash_attention.launches
+    got, _ = T.prefill(card, tok.to(cuda), cfg, L.FP32)
+    want, _ = T.prefill(cpu, tok, cfg, L.FP32)
+    assert attn.flash_attention.launches - n6 == attn_layers
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+    caches = [T.init_cache(cfg, 2, s + 1, L.FP32, device=d)
+              for d in (cuda, "cpu")]
+    lens = [torch.zeros(2, dtype=torch.int32, device=d) for d in (cuda, "cpu")]
+    n7 = attn.decode_attention.launches
+    for t in range(s):
+        outs = [T.decode_step(p, tok[:, t:t + 1].to(d), c, n, cfg, L.FP32)[0]
+                for p, d, c, n in zip((card, cpu), (cuda, "cpu"), caches,
+                                      lens)]
+        lens = [n + 1 for n in lens]
+    assert attn.decode_attention.launches - n7 == attn_layers * s
+    assert torch.allclose(outs[0].cpu(), outs[1], atol=2e-3, rtol=1e-3)
+    assert torch.allclose(outs[1], want, atol=2e-3, rtol=1e-3)
 
 
 # K8 against its plain version: float32 within the reference's kernel

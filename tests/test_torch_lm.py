@@ -30,28 +30,30 @@ from repro_torch.models import convert, layers as L, transformer as T
 
 TOL = dict(atol=2e-3, rtol=1e-3)
 SERVED = ["qwen3-14b", "starcoder2-7b", "internvl2-76b", "falcon-mamba-7b",
-          "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b"]
+          "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b", "zamba2-7b",
+          "gemma3-4b"]
 # prefill and teacher-forced decode compute one function only without
 # experts: an MoE layer's capacity (1.25·T·k/E) differs between a prompt
 # of B·S tokens and a decode step of B, so decode drops other tokens
 TEACHER_FORCED = [n for n in SERVED if not configs.get(n).is_moe]
 NEW_FAMILIES = ["falcon-mamba-7b", "phi3.5-moe-42b-a6.6b",
                 "moonshot-v1-16b-a3b"]
-NOT_SERVED = {
-    "zamba2-7b": "12b",
-    "minicpm3-4b": "12d", "gemma3-4b": "12d", "whisper-tiny": "12d",
-}
+# the Mamba-2 hybrid and the sliding-window decoder
+HYBRID_AND_WINDOWED = ["zamba2-7b", "gemma3-4b"]
+NOT_SERVED = {"minicpm3-4b": "12d", "whisper-tiny": "12d"}
 
 
 @functools.cache
-def _models(name):
+def _models(name, **depth):
     """(reference cfg, reference params, port cfg, port params) of the
-    reduced ``name``, with the same weights."""
-    cfg_r = ref_configs.get(name).reduced()
+    reduced ``name``, with the same weights; ``depth`` replaces fields of
+    the reduced config (``n_layers``, ``shared_attn_every``)."""
+    cfg_r = dataclasses.replace(ref_configs.get(name).reduced(), **depth)
     params_r = ref_T.init_params(jax.random.PRNGKey(0), cfg_r, ref_L.FP32)
     params = convert.from_reference(jax.tree.map(np.asarray, params_r),
                                     device="cpu")
-    return cfg_r, params_r, configs.get(name).reduced(), params
+    cfg = dataclasses.replace(configs.get(name).reduced(), **depth)
+    return cfg_r, params_r, cfg, params
 
 
 def _tokens(seed, cfg, b, s):
@@ -122,6 +124,25 @@ def test_falcon_mamba_and_phi35_moe_sizes():
     assert cut == pytest.approx(63.47, abs=0.005)
 
 
+def test_zamba2_and_gemma3_sizes():
+    """The card run's new models whole: zamba2-7b (81 Mamba-2 layers of
+    77.98 M parameters, the shared block, embedding and head) is 27.00 GB
+    in float32 and gemma3-4b 15.52 GB: each fits one 80 GB card at full
+    depth."""
+    z = ref_configs.get("zamba2-7b")
+    assert _f32_gb(z) == pytest.approx(27.00, abs=0.005)
+    assert (z.n_layers, z.d_model, z.expand * z.d_model, z.ssm_state,
+            z.shared_attn_every, z.resolved_head_dim) == (
+        81, 3584, 7168, 64, 6, 112)
+    one, two = (_f32_gb(dataclasses.replace(z, n_layers=n)) for n in (1, 2))
+    assert (two - one) * 1e9 / 4 == pytest.approx(77_977_424, abs=1)
+    g = ref_configs.get("gemma3-4b")
+    assert _f32_gb(g) == pytest.approx(15.52, abs=0.005)
+    assert (g.n_layers, g.sliding_window, g.local_global_ratio,
+            g.resolved_head_dim, g.vocab, g.tie_embeddings) == (
+        34, 1024, 5, 256, 262144, True)
+
+
 # ---------------------------------------------------------------------------
 # layers and the weight carry-over
 # ---------------------------------------------------------------------------
@@ -171,10 +192,11 @@ def test_convert_round_trips_bit_for_bit():
         cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
 
 
-@pytest.mark.parametrize("name", NEW_FAMILIES)
+@pytest.mark.parametrize("name", NEW_FAMILIES + ["zamba2-7b"])
 def test_convert_carries_the_nested_ssm_and_moe_dicts(name):
-    """The Mamba-1 (``layers.ssm``) and MoE (``layers.moe``, moonshot's
-    ``moe.shared``) dicts go across leaf by leaf, bit for bit."""
+    """The Mamba (``layers.ssm``) and MoE (``layers.moe``, moonshot's
+    ``moe.shared``) dicts and zamba2's ``shared_attn`` block go across
+    leaf by leaf, bit for bit."""
     _, params_r, _, params = _models(name)
     want = jax.tree_util.tree_leaves_with_path(
         jax.tree.map(np.asarray, params_r))
@@ -182,8 +204,11 @@ def test_convert_carries_the_nested_ssm_and_moe_dicts(name):
     assert [p for p, _ in want] == [p for p, _ in got]
     for (_, a), (_, b) in zip(want, got):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-    group = "ssm" if name.startswith("falcon") else "moe"
+    group = "ssm" if configs.get(name).ssm else "moe"
     assert isinstance(params["layers"][group], dict)
+    if name == "zamba2-7b":
+        assert set(params["shared_attn"]) == {"attn_norm", "attn",
+                                              "mlp_norm", "mlp"}
 
 
 @pytest.mark.parametrize("name", SERVED)
@@ -246,14 +271,11 @@ def test_decode_step_matches_reference(name):
     rng = np.random.default_rng(4)
     lengths = np.array([3, 7], np.int32)
     tok = _tokens(5, cfg, b, 1)
-    if cfg.ssm:  # a random carried state: conv window and h
-        cache = jax.tree.map(
-            lambda a: rng.standard_normal(a.shape).astype(np.float32),
-            ref_T.init_cache(cfg_r, b, cap, ref_L.FP32))
-    else:
-        shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
-        cache = {"kv": tuple(rng.standard_normal(shape).astype(np.float32)
-                             for _ in "kv")}
+    # a random cache of the reference's structure: K/V (gemma3's rings and
+    # global layers, zamba2's shared block), Mamba conv windows and states
+    cache = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32),
+        ref_T.init_cache(cfg_r, b, cap, ref_L.FP32))
     want_l, want_c = ref_T.decode_step(
         params_r, jnp.asarray(tok), jax.tree.map(jnp.asarray, cache),
         jnp.asarray(lengths), cfg_r, ref_L.FP32)
@@ -262,13 +284,16 @@ def test_decode_step_matches_reference(name):
         jax.tree.map(lambda a: torch.from_numpy(a.copy()), cache),
         torch.from_numpy(lengths), cfg, L.FP32)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **TOL)
+    assert sorted(got_c) == sorted(want_c)
     for mine, theirs in zip(jax.tree.leaves(got_c), jax.tree.leaves(want_c)):
         np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), **TOL)
-    if not cfg.ssm:
-        for mine, before in zip(got_c["kv"], cache["kv"]):
+    for key in ("kv", "local_kv", "global_kv", "shared_kv"):
+        for mine, before in zip(got_c.get(key, ()), cache.get(key, ())):
+            if not before.shape[0]:  # gemma3's reduced 2 layers are local
+                continue
             changed = (mine.numpy() != before).any(axis=(0, 3, 4))
             assert changed.tolist() == [[i == 3 for i in range(cap)],
-                                        [i == 7 for i in range(cap)]]
+                                        [i == 7 for i in range(cap)]], key
 
 
 @pytest.mark.parametrize("name", TEACHER_FORCED)
@@ -301,7 +326,7 @@ def test_serve_batch_tokens_match_reference_ssm_and_moe(name):
     _check_serve_batch(name)
 
 
-def _check_serve_batch(name):
+def _check_serve_batch(name, seed=8):
     """Greedy tokens equal the reference's. Equality means something only
     where the step's top-2 logit margin exceeds twice the logit
     tolerance, so the margins along the reference's own greedy path are
@@ -310,7 +335,7 @@ def _check_serve_batch(name):
     whole row where there is none)."""
     cfg_r, params_r, cfg, params = _models(name)
     b, p, max_new = 2, 8, 8
-    prompts = _tokens(8, cfg, b, p)
+    prompts = _tokens(seed, cfg, b, p)
     prompts[0, -2:] = 0  # zero pads are fed as tokens, as the reference does
     want = np.asarray(ref_serve.serve_batch(
         cfg_r, params_r, jnp.asarray(prompts), max_new=max_new,
@@ -336,14 +361,114 @@ def _check_serve_batch(name):
         assert got[row, :n].tolist() == want[row, :n].tolist(), row
 
 
-@pytest.mark.parametrize("arch", NEW_FAMILIES[:2])
-def test_serve_main_runs_the_new_families_on_the_cpu(arch, capsys):
+@pytest.mark.parametrize("name,seed", [("zamba2-7b", 9), ("gemma3-4b", 8)])
+def test_serve_batch_tokens_match_reference_hybrid_and_windowed(name, seed):
+    """zamba2's prompts come from seed 9: at seed 8 (the other families')
+    its first row meets a top-2 margin under twice the tolerance at its
+    third token, which leaves too little of the row decided to compare
+    (its eight tokens equal the reference's all the same)."""
+    _check_serve_batch(name, seed=seed)
+
+
+@pytest.mark.parametrize("arch,layers", [
+    *((a, 1) for a in NEW_FAMILIES[:2]), ("zamba2-7b", 3), ("gemma3-4b", 6),
+])
+def test_serve_main_runs_the_new_families_on_the_cpu(arch, layers, capsys):
+    """``serve.main`` on each family's cut: zamba2 at 3 layers (one
+    segment of 2, the shared block, one more), gemma3 at 6 (its first
+    global layer)."""
     toks = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "4", "--max-new", "3",
-                       "--n-layers", "1"])
+                       "--n-layers", str(layers)])
     assert toks.shape == (2, 3) and toks.dtype == torch.int32
     assert ((toks >= 0) & (toks < 256)).all()
-    assert "layers=1 " in capsys.readouterr().out
+    assert f"layers={layers} " in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# depths the reduced configs miss
+# ---------------------------------------------------------------------------
+
+
+def test_zamba2_two_segments_and_a_remainder_match_reference():
+    """zamba2 at 5 layers with the shared block every 2: two segments,
+    each followed by the shared block (two K/V caches), and one layer
+    after them. Forward, prefill, a decode step from a random state and
+    cache, and 32 teacher-forced steps against the forward."""
+    cfg_r, params_r, cfg, params = _models("zamba2-7b", n_layers=5,
+                                           shared_attn_every=2)
+    b, s = 2, 32
+    tok = _tokens(40, cfg, b, s)
+    want = ref_T.forward_hidden(params_r, jnp.asarray(tok), cfg_r,
+                                ref_L.FP32)
+    got = T.forward_hidden(params, torch.from_numpy(tok), cfg, L.FP32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    want_l, _ = ref_T.prefill(params_r, jnp.asarray(tok), cfg_r, ref_L.FP32)
+    fwd, _ = T.prefill(params, torch.from_numpy(tok), cfg, L.FP32)
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(want_l), **TOL)
+
+    rng = np.random.default_rng(41)
+    cache = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32),
+        ref_T.init_cache(cfg_r, b, s + 1, ref_L.FP32))
+    assert cache["shared_kv"][0].shape[0] == 2
+    lengths = np.array([4, 9], np.int32)
+    want_d, want_c = ref_T.decode_step(
+        params_r, jnp.asarray(tok[:, :1]), jax.tree.map(jnp.asarray, cache),
+        jnp.asarray(lengths), cfg_r, ref_L.FP32)
+    got_d, got_c = T.decode_step(
+        params, torch.from_numpy(tok[:, :1]),
+        jax.tree.map(lambda a: torch.from_numpy(a.copy()), cache),
+        torch.from_numpy(lengths), cfg, L.FP32)
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **TOL)
+    for mine, theirs in zip(jax.tree.leaves(got_c), jax.tree.leaves(want_c)):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), **TOL)
+
+    step = steps.make_serve_step(cfg, L.FP32)
+    cache = T.init_cache(cfg, b, s + 1, L.FP32, device="cpu")
+    lens = torch.zeros(b, dtype=torch.int32)
+    for t in range(s):
+        logits, cache, lens = step(params, torch.from_numpy(tok[:, t:t + 1]),
+                                   cache, lens)
+    np.testing.assert_allclose(logits.numpy(), fwd.numpy(), **TOL)
+
+
+def test_gemma3_ring_wraps_against_reference():
+    """gemma3 at 6 layers (5 local at window 32, then 1 global) over 80
+    tokens, 48 past the window, so the local rings of 32 positions wrap:
+    every teacher-forced step's logits and the final caches against the
+    reference's ``decode_step``, and the last step's logits against both
+    packages' forward."""
+    cfg_r, params_r, cfg, params = _models("gemma3-4b", n_layers=6)
+    assert T._window_schedule(cfg) == [32] * 5 + [0]
+    b, s = 2, 80
+    tok = _tokens(42, cfg, b, s)
+    ref_step = jax.jit(lambda p, t, c, n: ref_T.decode_step(
+        p, t, c, n, cfg_r, ref_L.FP32))
+    cache_r = ref_T.init_cache(cfg_r, b, s + 1, ref_L.FP32)
+    cache = T.init_cache(cfg, b, s + 1, L.FP32, device="cpu")
+    assert cache["local_kv"][0].shape == (5, b, 32, cfg.n_kv_heads, 16)
+    assert cache["global_kv"][0].shape == (1, b, s + 1, cfg.n_kv_heads, 16)
+    step = steps.make_serve_step(cfg, L.FP32)
+    lens = torch.zeros(b, dtype=torch.int32)
+    for t in range(s):
+        want, cache_r = ref_step(params_r, jnp.asarray(tok[:, t:t + 1]),
+                                 cache_r, jnp.full((b,), t, jnp.int32))
+        logits, cache, lens = step(params, torch.from_numpy(tok[:, t:t + 1]),
+                                   cache, lens)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(want), **TOL)
+    for key in ("local_kv", "global_kv"):
+        for mine, theirs in zip(cache[key], cache_r[key]):
+            np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
+                                       **TOL)
+    want_f, _ = ref_T.prefill(params_r, jnp.asarray(tok), cfg_r, ref_L.FP32)
+    fwd, _ = T.prefill(params, torch.from_numpy(tok), cfg, L.FP32)
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(want_f), **TOL)
+    np.testing.assert_allclose(logits.numpy(), fwd.numpy(), **TOL)
+    # the window binds: without it the forward differs
+    full = dataclasses.replace(cfg, sliding_window=0, local_global_ratio=0)
+    unwindowed, _ = T.prefill(params, torch.from_numpy(tok), full, L.FP32)
+    assert not np.allclose(unwindowed.numpy(), fwd.numpy(), **TOL)
 
 
 def test_serve_main_runs_on_the_cpu():

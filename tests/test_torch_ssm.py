@@ -1,5 +1,6 @@
 """The port's Mamba-1 path (``repro_torch.kernels.ssm_scan``,
-``repro_torch.models.ssm``) against the JAX package's, on the CPU.
+``repro_torch.models.ssm``) and its Mamba-2 (SSD) layer against the JAX
+package's, on the CPU.
 
 The selective scan's plain version is held against the Pallas kernel in
 interpret mode at the reference tests' shapes with their tolerance
@@ -9,7 +10,9 @@ bounds the reference holds those two to each other (``rtol=1e-4,
 atol=1e-5``, ``tests/test_arch_smoke.py``): the kernel's association
 ``(dt·x)·B`` and the model's ``(dt·B)·x`` differ at rounding level. Inputs
 are made with numpy from a seed; weights come from the reference's
-``mamba_init`` through ``models/convert.py``.
+``mamba_init`` through ``models/convert.py``. The Mamba-2 layer (plain
+torch in both packages) is held at the same bound, and its chunked form
+against its stepwise one at the reference's SSD bound (``SSD_TOL``).
 """
 
 import dataclasses
@@ -273,11 +276,152 @@ def test_mamba_init_matches_reference_structure():
         assert st[key].shape == st_r[key].shape and not st[key].any()
 
 
-def test_mamba2_is_not_ported():
-    cfg = configs.get("zamba2-7b").reduced()
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        S.mamba_init(torch.Generator(), cfg, L.FP32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        S.mamba_apply({}, torch.zeros(1, 2, cfg.d_model), cfg)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        S.mamba_init_state(cfg, 1, device="cpu")
+# ---------------------------------------------------------------------------
+# the Mamba-2 (SSD) layer against the reference
+# ---------------------------------------------------------------------------
+
+# the reference holds its chunked SSD form against its stepwise one at
+# rtol 1e-3, atol 1e-4 (tests/test_arch_smoke.py): the chunk's decay
+# matrices and the step's recurrence sum in different orders
+SSD_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+def _cfgs2(d_model=128, chunk=8):
+    """zamba2's reduced Mamba-2 at d_model 128 (d_inner 256: 4 heads of
+    64, state 8)."""
+    cfg_r = dataclasses.replace(ref_configs.get("zamba2-7b").reduced(),
+                                d_model=d_model, ssm_chunk=chunk)
+    cfg = dataclasses.replace(configs.get("zamba2-7b").reduced(),
+                              d_model=d_model, ssm_chunk=chunk)
+    return cfg_r, cfg
+
+
+def _ssd_inputs(seed, cfg, b, s, with_state):
+    """x (the block input), xi (post-conv/silu) and h0 (zeros or N(0,
+    1))."""
+    di, n = cfg.expand * cfg.d_model, cfg.ssm_state
+    nh = di // S.MAMBA2_HEAD
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    xi = (rng.standard_normal((b, s, di)) * 0.5).astype(np.float32)
+    h0 = (rng.standard_normal((b, nh, S.MAMBA2_HEAD, n)) if with_state
+          else np.zeros((b, nh, S.MAMBA2_HEAD, n))).astype(np.float32)
+    return x, xi, h0
+
+
+def test_mamba2_init_matches_reference_structure():
+    cfg_r, cfg = _cfgs2()
+    p_r = ref_S.mamba_init(jax.random.PRNGKey(0), cfg_r, ref_L.FP32)
+    p = S.mamba_init(torch.Generator().manual_seed(0), cfg, L.FP32, "cpu")
+    assert sorted(p) == sorted(p_r)
+    for key, a in p_r.items():
+        assert tuple(p[key].shape) == a.shape, key
+        assert str(p[key].dtype).removeprefix("torch.") == str(a.dtype), key
+    for key in ("a_log", "conv_b", "dt_bias", "d_skip", "norm_scale"):
+        np.testing.assert_array_equal(p[key].numpy(), np.asarray(p_r[key]))
+    assert S.MAMBA2_HEAD == ref_S.MAMBA2_HEAD
+    st = S.mamba_init_state(cfg, 3, device="cpu")
+    st_r = ref_S.mamba_init_state(cfg_r, 3)
+    for key in ("conv", "h"):
+        assert st[key].shape == st_r[key].shape and not st[key].any()
+    assert st["h"].shape == (3, 4, S.MAMBA2_HEAD, cfg.ssm_state)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba2_chunked_matches_reference(with_state):
+    cfg_r, cfg = _cfgs2()
+    p_r, p = _layer(cfg_r, seed=21)
+    x, xi, h0 = _ssd_inputs(22, cfg, 2, 32, with_state)
+    y_r, h_r = ref_S._mamba2_chunked(p_r, jnp.asarray(x), jnp.asarray(xi),
+                                     cfg_r, jnp.asarray(h0), 8)
+    y, h = S._mamba2_chunked(p, torch.from_numpy(x), torch.from_numpy(xi),
+                             cfg, torch.from_numpy(h0), 8)
+    assert y.dtype == torch.float32 and h.shape == h0.shape
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **LAYER_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_r), **LAYER_TOL)
+
+
+def test_mamba2_step_matches_reference():
+    cfg_r, cfg = _cfgs2()
+    p_r, p = _layer(cfg_r, seed=23)
+    x, xi, h0 = _ssd_inputs(24, cfg, 2, 1, True)
+    xh = xi[:, 0].reshape(2, -1, S.MAMBA2_HEAD)
+    y_r, h_r = ref_S._mamba2_step(p_r, jnp.asarray(x[:, 0]), jnp.asarray(xh),
+                                  jnp.asarray(h0), cfg.ssm_state)
+    y, h = S._mamba2_step(p, torch.from_numpy(x[:, 0]), torch.from_numpy(xh),
+                          torch.from_numpy(h0), cfg.ssm_state)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **LAYER_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_r), **LAYER_TOL)
+
+
+def test_mamba2_chunked_matches_its_own_steps():
+    """The port's chunked SSD over 4 chunks of 8 equals its recurrent
+    step applied position by position, at the reference's SSD_TOL."""
+    cfg_r, cfg = _cfgs2()
+    _, p = _layer(cfg_r, seed=25)
+    x, xi, h0 = _ssd_inputs(26, cfg, 2, 32, True)
+    y_chunk, h_chunk = S._mamba2_chunked(
+        p, torch.from_numpy(x), torch.from_numpy(xi), cfg,
+        torch.from_numpy(h0), 8)
+    h = torch.from_numpy(h0)
+    for t in range(32):
+        xh = torch.from_numpy(xi[:, t]).reshape(2, -1, S.MAMBA2_HEAD)
+        y_t, h = S._mamba2_step(p, torch.from_numpy(x[:, t]), xh, h,
+                                cfg.ssm_state)
+        np.testing.assert_allclose(y_chunk[:, t].numpy(),
+                                   y_t.reshape(2, -1).numpy(), **SSD_TOL)
+    np.testing.assert_allclose(h_chunk.numpy(), h.numpy(), **SSD_TOL)
+
+
+@pytest.mark.parametrize("s,with_state", [(32, False), (32, True), (1, True),
+                                          (1, False), (8, True)])
+def test_mamba2_apply_matches_reference(s, with_state):
+    """The whole block: B, C and the steps from the block input, the
+    per-head skip repeated over its 64 channels, the gated norm before
+    silu(z); S=8 is one chunk."""
+    cfg_r, cfg = _cfgs2()
+    p_r, p = _layer(cfg_r, seed=27)
+    di, n, k = cfg.expand * cfg.d_model, cfg.ssm_state, cfg.d_conv
+    nh = di // S.MAMBA2_HEAD
+    rng = np.random.default_rng(28)
+    x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    state_np = None
+    if with_state:
+        state_np = {"conv": rng.standard_normal((2, k - 1, di)).astype(
+            np.float32), "h": rng.standard_normal(
+            (2, nh, S.MAMBA2_HEAD, n)).astype(np.float32)}
+    y_r, st_r = ref_S.mamba_apply(
+        p_r, jnp.asarray(x), cfg_r,
+        state=None if state_np is None
+        else {kk: jnp.asarray(v) for kk, v in state_np.items()})
+    y, st = S.mamba_apply(
+        p, torch.from_numpy(x), cfg,
+        state=None if state_np is None
+        else {kk: torch.from_numpy(v.copy()) for kk, v in state_np.items()})
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **LAYER_TOL)
+    for key in ("conv", "h"):
+        assert st[key].shape == st_r[key].shape
+        np.testing.assert_allclose(st[key].numpy(), np.asarray(st_r[key]),
+                                   **LAYER_TOL)
+
+
+def test_mamba2_needs_the_chunk_to_divide_s():
+    """At S=20 over chunks of 8 the reference fails on its reshape; the
+    port raises ``ValueError`` naming the chunk. S below the chunk is one
+    chunk of S, as in the reference."""
+    cfg_r, cfg = _cfgs2()
+    p_r, p = _layer(cfg_r, seed=29)
+    x, xi, h0 = _ssd_inputs(30, cfg, 1, 20, False)
+    with pytest.raises(TypeError):
+        ref_S._mamba2_chunked(p_r, jnp.asarray(x), jnp.asarray(xi), cfg_r,
+                              jnp.asarray(h0), 8)
+    with pytest.raises(ValueError, match="chunk 8"):
+        S._mamba2_chunked(p, torch.from_numpy(x), torch.from_numpy(xi), cfg,
+                          torch.from_numpy(h0), 8)
+    y, _ = S._mamba2_chunked(p, torch.from_numpy(x[:, :5]),
+                             torch.from_numpy(xi[:, :5]), cfg,
+                             torch.from_numpy(h0), 8)
+    y_r, _ = ref_S._mamba2_chunked(p_r, jnp.asarray(x[:, :5]),
+                                   jnp.asarray(xi[:, :5]), cfg_r,
+                                   jnp.asarray(h0), 8)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **LAYER_TOL)

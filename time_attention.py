@@ -101,12 +101,13 @@ def _k6_tiles(kernel, q, k, v, want, bound) -> dict:
     hk = k.shape[2]
     out = torch.empty_like(q)
     tiles = {}
+    fn = kernel._lib().flash_attention_launch
+    window = [0] if len(fn.argtypes) > 15 else []  # trees with K6's window
     for warps, sms in (("8_warps", 1), ("4_warps", 10**6)):
         def call(sms=sms):
             rc = kernel.device.launch(
-                q.device, kernel._lib().flash_attention_launch, 0,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s, s, h, hk, d, 1, d ** -0.5, sms)
+                q.device, fn, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), b, s, s, h, hk, d, 1, *window, d ** -0.5, sms)
             if rc:
                 raise RuntimeError(f"K6 launch failed: {rc}")
         call()
