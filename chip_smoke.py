@@ -54,7 +54,11 @@ failure exits non-zero:
    over 32 heads of 112) at the serve path's prefill and step; K6 and K7
    at gemma3-4b's heads at its paths' shapes (K6 with the window at B=4,
    S=128 and at B=2, S=1088; K7 at the serve step and over a ring of 1024
-   slots at every length to 1088); all within a stated float32 bound of their
+   slots at every length to 1088); K6 at the shapes minicpm3-4b's MLA
+   gives it, q and k 96 wide and v 64 (40 heads over 40, causal, at the
+   serve prefill, B=4, S=128, and at B=1, S=4096), and whisper-tiny's (6
+   heads of 64, non-causal: the encoder at B=4, S=1500, the prefill's
+   cross attention at S=128 over 1500); all within a stated float32 bound of their
    plain versions, at both shapes the whole call timed as K2's (median
    of 7 runs of 20, the card's time alone, the host's per call) beside
    ``scaled_dot_product_attention`` and the bound; the selective-scan
@@ -157,6 +161,20 @@ failure exits non-zero:
     global), 2 prompts of 1088 tokens: the prefill (6 K6 launches, the
     window binding) against 1088 teacher-forced steps (6528 K7 launches),
     the local rings of 1024 positions wrapping for the last 64;
+    MLA path — minicpm3-4b whole (62 MLA layers, 16.30 GB): the prefill
+    (62 K6 launches, the latent expanded to K of 96 and V of 64) against
+    128 teacher-forced steps of the absorbed latent-space decode (plain
+    torch, no kernel), then ``serve_batch`` (no kernel);
+    encoder-decoder path — whisper-tiny whole (4 encoder and 4 decoder
+    layers of 384, 0.146 GB) over 1500 stub frames drawn from a seed
+    (scaled by 0.02): the prefill (12 K6 launches: 4 encoder layers, each
+    decoder layer's self and cross attention) against 128 teacher-forced
+    steps given the encoder's output (512 K7 and 512 K6 launches: each
+    step's cross attention over the 1500 frames on K6); then, as the
+    reference serves it, without the encoder's output: 128 teacher-forced
+    steps (the cross layer attends each token to itself; 512 K7, 512 K6)
+    whose argmax ``serve_batch``'s first tokens must equal (640 K7, 640
+    K6);
 12. the script's seconds, the card line, the ``{"kernels": [...]}`` line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -310,6 +328,14 @@ HYBRID_ARCH, WINDOW_ARCH = "zamba2-7b", "gemma3-4b"
 # O(1). Each unit alone is held at 1 unit (check_hybrid_units).
 HYBRID_GAP_LIMIT = 10.0
 RING_LAYERS, RING_B, RING_EXTRA = 6, 2, 64
+# the MLA path: minicpm3-4b whole (16.30 GB in float32); the
+# encoder-decoder path: whisper-tiny whole (0.146 GB), its stub frames
+# N(0, 1) * 0.02 as the reference's tests draw them
+MLA_ARCH, ENC_DEC_ARCH, FRAME_SCALE = "minicpm3-4b", "whisper-tiny", 0.02
+# K6 at minicpm3's MLA prefill (40 heads over 40, q and k 64 + 32 wide, v
+# 64) and whisper's attention (6 heads of 64 over 1500 frames)
+MLA_H, MLA_DK, MLA_DV = 40, 96, 64
+WHISPER_H, WHISPER_D, WHISPER_FRAMES = 6, 64, 1500
 # K6 with gemma3-4b's window at its heads, and zamba2-7b's shared
 # attention heads (K6 at the serve prefill, K7 at the serve step)
 K6W_B, K6W_S, K6W_H, K6W_HK, K6W_D, K6W_WINDOW = 1, 4096, 8, 4, 256, 1024
@@ -823,17 +849,26 @@ def _within(got, want, what, atol=ATTN_ATOL) -> float:
     return err
 
 
-def _flash_bounds(b, s, h, hk, d, window=0) -> dict:
-    """K6's bounds, causal: the operations at the accuracy kept (3xTF32:
-    three TF32 products a multiply-add, at 495 TFLOP/s), beside the
-    float32 CUDA cores' (the earlier design's) and the bytes (q, k, v read
-    once, o written once). With a window, only the (query, key) pairs
-    inside it count: min(i + 1, window) keys for query row i."""
+def _flash_bounds(b, s, h, hk, d, window=0, *, s_kv=None, dv=None,
+                  causal=True) -> dict:
+    """K6's bounds: the operations at the accuracy kept (3xTF32: three
+    TF32 products a multiply-add, at 495 TFLOP/s), beside the float32
+    CUDA cores' (the earlier design's) and the bytes (q, k, v read once, o
+    written once). Each (query, key) pair takes 2 d flops in Q.K and 2 dv
+    in P.V (dv, V's head dim, defaults to d). Causal (S_kv = S): i + 1
+    keys for query row i, min(i + 1, window) with a window; non-causal:
+    all S_kv keys."""
+    s_kv = s if s_kv is None else s_kv
+    dv = d if dv is None else dv
     w = window or s
-    pairs = (s * (s + 1) // 2 if s <= w  # causal (query, key) pairs
-             else w * (w + 1) // 2 + (s - w) * w)
-    flops = 4 * b * h * d * pairs
-    nbytes = 4 * b * s * d * (2 * h + 2 * hk)
+    if not causal:
+        pairs = s * s_kv
+    elif s <= w:  # causal (query, key) pairs
+        pairs = s * (s + 1) // 2
+    else:
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    flops = 2 * b * h * (d + dv) * pairs
+    nbytes = 4 * (b * s * h * (d + dv) + b * s_kv * hk * (d + dv))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"gflop": flops / 1e9, "bytes_ms": bytes_ms,
             "bound_ms": max(3 * flops / TF32_FLOPS_PER_S * 1e3, bytes_ms),
@@ -1071,6 +1106,59 @@ def check_gemma3_attention():
                             "max_abs_err": err_ring},
                    "max_abs_err": max(err_d, err_ring)},
     }
+
+
+def check_mla_whisper_attention():
+    """K6 at the shapes minicpm3-4b's and whisper-tiny's paths give it,
+    each within ``ATTN_ATOL`` of its plain version and each whole call
+    (``_call_times``) beside its bound, its plain version and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls;
+    it takes V's own head dim): minicpm3's MLA
+    prefill (40 heads over 40, q and k 96 wide, v 64, causal) at the serve
+    prefill (B=4, S=128) and at B=1, S=4096; whisper's encoder (B=4,
+    S=1500, 6 heads of 64, non-causal) and its prefill's cross attention
+    (B=4, S=128 over 1500 frames, non-causal)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention.ref import flash_gqa_ref
+
+    cases = [
+        ("minicpm3 serve prefill", SERVE_B, SERVE_P, SERVE_P, MLA_H, MLA_DK,
+         MLA_DV, True),
+        ("minicpm3 prefill at S=4096", K6_B, K6_S, K6_S, MLA_H, MLA_DK,
+         MLA_DV, True),
+        ("whisper encoder", SERVE_B, WHISPER_FRAMES, WHISPER_FRAMES,
+         WHISPER_H, WHISPER_D, WHISPER_D, False),
+        ("whisper cross attention at the prefill", SERVE_B, SERVE_P,
+         WHISPER_FRAMES, WHISPER_H, WHISPER_D, WHISPER_D, False),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+    for name, b, s, s_kv, h, dk, dv, causal in cases:
+        q = _randn(g, b, s, h, dk)
+        k, v = _randn(g, b, s_kv, h, dk), _randn(g, b, s_kv, h, dv)
+        run = lambda: kernel.flash_attention_gqa(  # noqa: E731
+            q, k, v, causal=causal)
+        got = run()
+        torch.cuda.synchronize()
+        err = _within(got, flash_gqa_ref(q, k, v, causal=causal),
+                      f"K6 at {name}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal)
+        bounds = _flash_bounds(b, s, h, h, dk, s_kv=s_kv, dv=dv,
+                               causal=causal)
+        out[name] = {
+            "B": b, "S": s, "S_kv": s_kv, "H": h, "Hk": h, "Dk": dk, "Dv": dv,
+            "causal": causal, "max_abs_err": err,
+            "library_max_abs_err": float(
+                (lib().transpose(1, 2) - got).abs().max().item()),
+            **bounds, **_call_times(run, bounds["bound_ms"]),
+            "plain_ms": _time_ms(lambda: flash_gqa_ref(q, k, v,
+                                                       causal=causal), 3),
+            "library_ms": _time_ms(lib, REPS, TRIALS),
+            "library_device_ms": _device_ms(lib, REPS)}
+    return out
 
 
 def _decode_bound_bytes_ms(b, h, hk, d, committed) -> float:
@@ -1467,21 +1555,31 @@ def _zero_launch_counts():
         counted.launches = 0
 
 
-def _decode_bound_ms(cfg, params, steps_run, batch=SERVE_B) -> float:
+def _decode_bound_ms(cfg, params, steps_run, batch=SERVE_B,
+                     enc_frames=0) -> float:
     """The bytes bound of one decode step, averaged over ``steps_run``
-    steps from an empty cache: every weight read once (zamba2's shared
-    block once an application: no on-chip memory holds its 0.82 GB
-    between them; the embedding table only where it is not the head:
-    then its ``batch`` rows are gathered; tied, it is the head and read
-    whole), and the caches:
+    steps from an empty cache: every weight a step uses read once
+    (zamba2's shared block once an application: no on-chip memory holds
+    its 0.82 GB between them; the embedding table only where it is not
+    the head: then its ``batch`` rows are gathered; tied, it is the head
+    and read whole; whisper's encoder weights not at all), and the caches:
 
     - each Mamba layer's conv window and state read and written (Mamba-2's
       ``(nh, 64, n)`` state holds ``d_inner * n`` words, as Mamba-1's);
     - each attention layer, or zamba2's shared block at each of its
       applications, reads its committed K/V rows (``min(t + 1, window)``
-      at step t for gemma3's local layers on their rings) and writes one.
+      at step t for gemma3's local layers on their rings) and writes one;
+      an MLA layer reads and writes rows of its latent and rotary key
+      (``kv_lora_rank + qk_rope_dim`` words a position);
+    - given ``enc_frames``, each of whisper's decoder layers reads the
+      encoder output (``enc_frames`` rows of ``d_model``) once a step, as
+      ``_cross_decode`` recomputes its cross K/V from it (the
+      ``"cross_kv"`` cache, never read, is not counted).
     """
     weights = _param_bytes(params)
+    if cfg.enc_dec:  # a decode step never runs the encoder
+        weights -= (_param_bytes(params["enc_layers"])
+                    + params["enc_norm"].numel() * 4)
     if cfg.shared_attn_every:  # the shared block, read at each application
         weights += ((cfg.n_layers // cfg.shared_attn_every - 1)
                     * _param_bytes(params["shared_attn"]))
@@ -1499,10 +1597,13 @@ def _decode_bound_ms(cfg, params, steps_run, batch=SERVE_B) -> float:
     else:
         from repro_torch.models.transformer import _window_schedule
         windows = _window_schedule(cfg)
-    row = cfg.n_kv_heads * cfg.resolved_head_dim * 4 * 2
+    row = (4 * (cfg.kv_lora_rank + cfg.qk_rope_dim) if cfg.attn_type == "mla"
+           else cfg.n_kv_heads * cfg.resolved_head_dim * 4 * 2)
     for w in windows:
         rows = sum(min(t + 1, w or t + 1) for t in range(steps_run))
         cache += row * batch * (rows + steps_run)
+    cache += (cfg.n_layers * batch * enc_frames * cfg.d_model * 4
+              * steps_run)
     return (steps_run * weights + cache) / HBM_BYTES_PER_S / steps_run * 1e3
 
 
@@ -1680,7 +1781,13 @@ def run_lm_path(arch, *, n_layers=None):
     tokens equal to (a)'s argmax wherever the top-2 margin exceeds twice
     the tolerance, timed beside the decode step's bytes bound; (c)
     ``profile_decode``. The K6-K9 launches of each run are read around it
-    and must equal the family's counts. ``n_layers`` cuts the depth."""
+    and must equal the family's counts. ``n_layers`` cuts the depth.
+
+    The encoder-decoder (whisper) prefills over stub frames drawn from a
+    seed (``FRAME_SCALE``) and its teacher-forced steps are given the
+    encoder's output (``T._encode``, its launches read apart); since
+    ``serve_batch`` gives none, as the reference's does, its first tokens
+    are held against a second teacher-forced run without it."""
     from repro_torch.configs import base as configs
     from repro_torch.launch import serve, steps
     from repro_torch.models import layers as L, transformer as T
@@ -1698,6 +1805,12 @@ def run_lm_path(arch, *, n_layers=None):
     gen.manual_seed(1)
     prompts = torch.randint(3, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
                             device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    if cfg.enc_dec:  # the stub frontend's frame embeddings
+        gen.manual_seed(2)
+        batch["frontend"] = FRAME_SCALE * torch.randn(
+            (SERVE_B, cfg.frontend_len, cfg.d_model), generator=gen,
+            device=dev)
     torch.cuda.synchronize()
     out = {"arch": cfg.name, "n_layers": n,
            "n_layers_of": configs.get(arch).n_layers, "d_model": cfg.d_model,
@@ -1716,6 +1829,18 @@ def run_lm_path(arch, *, n_layers=None):
         expect = {"prefill": {**zero, "k6": n},
                   "moe_check": {**zero, "k6": n, "k9": 3 * n},
                   "serve": {**zero, "k7": n * steps_run}}
+    elif cfg.attn_type == "mla":  # the absorbed decode is plain torch
+        expect = {"prefill": {**zero, "k6": n}, "teacher_forced": zero,
+                  "serve": zero}
+    elif cfg.enc_dec:  # K6 for the encoder, each decoder layer's self and
+        # cross attention; a step's cross attention on K6 (S=1) as well
+        expect = {"prefill": {**zero, "k6": cfg.n_enc_layers + 2 * n},
+                  "encode": {**zero, "k6": cfg.n_enc_layers},
+                  **{run: {**zero, "k6": n * SERVE_P, "k7": n * SERVE_P}
+                     for run in ("teacher_forced",
+                                 "teacher_forced_without_enc_out")},
+                  "serve": {**zero, "k6": n * steps_run,
+                            "k7": n * steps_run}}
     else:  # dense, sliding-window, or the hybrid (no kernel for Mamba-2)
         expect = {"prefill": {**zero, "k6": n_attn},
                   "teacher_forced": {**zero, "k7": n_attn * SERVE_P},
@@ -1728,7 +1853,7 @@ def run_lm_path(arch, *, n_layers=None):
     _zero_launch_counts()
     t0 = time.perf_counter()
     fwd, _ = steps.make_prefill_step(cfg, L.FP32, max_seq=SERVE_MAX_SEQ)(
-        params, {"tokens": prompts})
+        params, batch)
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     launches["prefill"] = _launch_counts()
@@ -1741,16 +1866,41 @@ def run_lm_path(arch, *, n_layers=None):
         out["moe_check"] = check_moe_layers(cfg, params, prompts)
         launches["moe_check"] = _launch_counts()
     else:
-        cache = T.init_cache(cfg, SERVE_B, SERVE_MAX_SEQ, L.FP32, device=dev)
-        lens = torch.zeros(SERVE_B, dtype=torch.int32, device=dev)
-        _zero_launch_counts()
-        t0 = time.perf_counter()
-        for t in range(SERVE_P):
-            dec, cache, lens = step(params, prompts[:, t:t + 1], cache, lens)
-        torch.cuda.synchronize()
-        out["teacher_forced_s"] = time.perf_counter() - t0
-        launches["teacher_forced"] = _launch_counts()
-        del cache
+        enc_out = None
+        if cfg.enc_dec:
+            _zero_launch_counts()
+            enc_out = T._encode(params, batch["frontend"], cfg, L.FP32)
+            launches["encode"] = _launch_counts()
+
+        def teacher_forced(run, enc_out):
+            cache = T.init_cache(cfg, SERVE_B, SERVE_MAX_SEQ, L.FP32,
+                                 device=dev)
+            lens = torch.zeros(SERVE_B, dtype=torch.int32, device=dev)
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            for t in range(SERVE_P):
+                logits, cache, lens = step(params, prompts[:, t:t + 1], cache,
+                                           lens, enc_out)
+            torch.cuda.synchronize()
+            out[f"{run}_s"] = time.perf_counter() - t0
+            out[f"{run}_ms_per_step"] = out[f"{run}_s"] / SERVE_P * 1e3
+            launches[run] = _launch_counts()
+            return logits
+
+        dec = teacher_forced("teacher_forced", enc_out)
+        if cfg.enc_dec:
+            out["teacher_forced_bound_ms_per_step"] = _decode_bound_ms(
+                cfg, params, SERVE_P, enc_frames=cfg.frontend_len)
+            # serve_batch's first tokens are held against steps run as it
+            # runs them, without the encoder's output
+            dec_serve = teacher_forced("teacher_forced_without_enc_out",
+                                       None)
+            out["without_enc_out_vs_with"] = {
+                "max_abs_logit_diff": float((dec_serve - dec).abs().max()
+                                            .item()),
+                "top1_agree": float((dec_serve.argmax(-1) == dec.argmax(-1))
+                                    .float().mean().item())}
+            del enc_out
         if cfg.shared_attn_every:
             _zero_launch_counts()
             out["unit_check"] = check_hybrid_units(cfg, params, prompts)
@@ -1784,6 +1934,8 @@ def run_lm_path(arch, *, n_layers=None):
                              f"{tuple(toks.shape)} tokens or tokens out of "
                              f"range")
     if dec is not None:
+        if cfg.enc_dec:
+            dec = dec_serve
         top = torch.topk(dec, 2, dim=-1).values
         sure = (top[:, 0] - top[:, 1]) > 2 * (SERVE_ATOL
                                               + SERVE_RTOL * top[:, 0].abs())
@@ -1796,8 +1948,9 @@ def run_lm_path(arch, *, n_layers=None):
         "serve_s": serve_s, "serve_steps": steps_run,
         "decode_ms_per_step": serve_s / steps_run * 1e3,
         "decode_bound_ms_per_step": _decode_bound_ms(cfg, params, steps_run),
-        "decode_bound_basis": "bytes: weights once (a tied embedding whole), "
-                              "the caches' rows and states",
+        "decode_bound_basis": "bytes: the weights a step uses once (a tied "
+                              "embedding whole), the caches' rows and "
+                              "states",
         "generated_tokens_per_s": SERVE_B * SERVE_NEW / serve_s,
         "step_tokens_per_s": SERVE_B * steps_run / serve_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2561,6 +2714,9 @@ def main() -> int:
     gemma = check_gemma3_attention()
     print("flash and decode attention, gemma3's paths:", json.dumps(gemma),
           flush=True)
+    mlaw = check_mla_whisper_attention()
+    print("flash attention, minicpm3's MLA and whisper's shapes:",
+          json.dumps(mlaw), flush=True)
     sc = check_scan_kernel()
     print("selective scan kernel:", json.dumps(sc), flush=True)
     gm = check_gmm_kernel()
@@ -2688,6 +2844,13 @@ def main() -> int:
     print("sliding-window path:", json.dumps(win), flush=True)
     ring = run_ring_check()
     print("ring check:", json.dumps(ring), flush=True)
+    # MLA (K6 with V's own head dim on the prefill, a plain latent-space
+    # decode) and the encoder-decoder (K6 for the encoder and cross
+    # attention, K7 for the decoder's self attention)
+    mla = run_lm_path(MLA_ARCH)
+    print("MLA path:", json.dumps(mla), flush=True)
+    encdec = run_lm_path(ENC_DEC_ARCH)
+    print("encoder-decoder path:", json.dumps(encdec), flush=True)
 
     # 12. result lines
     big = waves["kernel_phase"]
@@ -2797,13 +2960,22 @@ def main() -> int:
                               "sliding-window prefill":
                                   win["launches"]["prefill"]["k6"],
                               "ring check prefill":
-                                  ring["launches"]["prefill"]["k6"]},
+                                  ring["launches"]["prefill"]["k6"],
+                              "MLA prefill":
+                                  mla["launches"]["prefill"]["k6"],
+                              **{f"encoder-decoder {run}":
+                                 encdec["launches"][run]["k6"]
+                                 for run in ("prefill", "encode",
+                                             "teacher_forced",
+                                             "teacher_forced_without_enc_out",
+                                             "serve")}},
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
                      "version (float32 inputs, products in 3xTF32 on the "
                      "tensor cores; the sum order differs)",
         "max_abs_err": max(fl["max_abs_err"], fw_win["max_abs_err"],
                            zamba["flash"]["max_abs_err"],
-                           gemma["flash"]["max_abs_err"]),
+                           gemma["flash"]["max_abs_err"],
+                           *(c["max_abs_err"] for c in mlaw.values())),
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "device_ms": fl["device_ms"], "host_us": fl["host_us"],
         "bound_ms": fl["bound_ms"], "bound_by": "operations",
@@ -2821,6 +2993,7 @@ def main() -> int:
         "window": fw_win,
         "zamba2_serve_shape": zamba["flash"],
         "gemma3_path_shapes": gemma["flash"],
+        "mla_and_whisper_shapes": mlaw,
     }
     decode_entry = {
         "name": "decode_attention", "route": "cuda",
@@ -2836,7 +3009,10 @@ def main() -> int:
                 win["launches"]["teacher_forced"]["k7"],
             "sliding-window serve_batch": win["launches"]["serve"]["k7"],
             "ring check teacher-forced":
-                ring["launches"]["teacher_forced"]["k7"]},
+                ring["launches"]["teacher_forced"]["k7"],
+            **{f"encoder-decoder {run}": encdec["launches"][run]["k7"]
+               for run in ("teacher_forced",
+                           "teacher_forced_without_enc_out", "serve")}},
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
                      "version (float32; the sum order differs)",
         "max_abs_err": max(de["max_abs_err"],

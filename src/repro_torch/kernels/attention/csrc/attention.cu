@@ -21,7 +21,10 @@
 // Layout. Both kernels take the model's layout, q (B, S, H, D) and k, v
 // (B, S_kv, Hk, D), contiguous, with query head h reading kv head
 // h / (H / Hk) by index (GQA; K and V are never copied per query head). The
-// reference's (BH, S, d) layout is the case H = Hk = 1. Sizes are run-time
+// reference's (BH, S, d) layout is the case H = Hk = 1. K6's V may have a
+// head dim Dv of its own, and its output is (B, S, H, Dv): minicpm3's MLA
+// prefill attends with q, k of 96 (64 + 32 rotary) and v of 64, as the
+// reference's flash_mha allows (the Pallas kernel's block shapes take one d). Sizes are run-time
 // arguments: a ragged last tile is masked, where the Pallas kernels assert
 // that S and S_kv divide by their blocks. Inputs are float32, float16 or
 // bfloat16; every sum is in float32 and the output is in the input's type.
@@ -64,8 +67,8 @@
 // minus itself); its first key inside the window sets alpha = exp(-1e30 - m)
 // = 0 on them, as in the reference's blocked loop.
 //
-// K6 bound. Operations: 4 * B * H * S * S_kv * D multiply-adds' flops, half
-// of it when causal: at B=1, H=40, S=4096, D=128 causal, 171.8 GFLOP.
+// K6 bound. Operations: 2 * B * H * S * S_kv * (D + Dv) flops (Q.K and
+// P.V), half of it when causal: at B=1, H=40, S=4096, D=128 causal, 171.8 GFLOP.
 // At the accuracy kept (3xTF32) that is 3 * 171.8 GFLOP at the TF32 tensor
 // cores' 495 TFLOP/s, 1.04 ms; in float32 on the CUDA cores (67 TFLOP/s)
 // it was 2.57 ms. With a window only the keys inside it count: at gemma3's
@@ -222,46 +225,51 @@ struct FlashTile {
   static constexpr int kBK = KEYS;
 };
 
-// shared words: q, K and V split into hi/lo TF32 words in the order of
-// the mma fragments (2 words an element), and the staged K and V rows
+// shared words: q, K (head dim d) and V (head dim dv) split into hi/lo TF32
+// words in the order of the mma fragments (2 words an element), and the
+// staged K and V rows; at dv = d, dp (2 BQ + 6 BK) words
 template <int WARPS, int KEYS>
-size_t flash_smem_t(int d) {
+size_t flash_smem_t(int d, int dv) {
   using F = FlashTile<WARPS, KEYS>;
-  const size_t dp = (d + 7) / 8 * 8;
-  return sizeof(float) * dp * (2 * F::kBQ + 6 * F::kBK);
+  const size_t dp = (d + 7) / 8 * 8, dvp = (dv + 7) / 8 * 8;
+  return sizeof(float) * (2 * F::kBQ * dp + 3 * F::kBK * (dp + dvp));
 }
 
 template <typename T, int DMAX, int WARPS, int KEYS>
 __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int S_kv,
-                 int H, int Hk, int d, int causal, int window, float sm_scale,
-                 int vec) {
+                 int H, int Hk, int d, int dv, int causal, int window,
+                 float sm_scale, int vec) {
   using F = FlashTile<WARPS, KEYS>;
   constexpr int BQ = F::kBQ, BK = F::kBK, NTH = F::kThreads;
   constexpr int NT = DMAX / 8;  // n-tiles of the output, k-steps of Q.K
   constexpr int NK = BK / 8;    // n-tiles of the scores, k-steps of P.V
   extern __shared__ __align__(16) float smem[];
-  const int dp = (d + 7) & ~7;  // dims the products run over (zero-padded)
-  const int nks = dp >> 3;      // 8-dim groups
+  const int dp = (d + 7) & ~7;  // dims Q.K runs over (zero-padded)
+  const int nks = dp >> 3;      // its 8-dim groups
+  const int dvp = (dv + 7) & ~7;  // dims P.V and the output run over
+  const int nvs = dvp >> 3;       // the output's n-tiles
   // fragment-ordered words: q [warp][group][lane][a0..a3 hi, a0..a3 lo],
   // K [key n-tile][group][lane][b0 hi, b1 hi, b0 lo, b1 lo], V [key k-step]
   // [dim n-tile][lane][same]; a lane's words are one 16-byte load each
   unsigned* sQf = reinterpret_cast<unsigned*>(smem);  // 2 BQ x dp
   unsigned* sKf = sQf + 2 * BQ * dp;                   // 2 BK x dp
-  unsigned* sVf = sKf + 2 * BK * dp;                   // 2 BK x dp
-  float* sStage = reinterpret_cast<float*>(sVf + 2 * BK * dp);  // K, V rows
+  unsigned* sVf = sKf + 2 * BK * dp;                   // 2 BK x dvp
+  float* sStage = reinterpret_cast<float*>(sVf + 2 * BK * dvp);  // K rows
+  float* sStageV = sStage + BK * dp;                              // V rows
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hk);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tile first
-  const long long q_pos = (long long)H * d, kv_pos = (long long)Hk * d;
+  const long long q_pos = (long long)H * d, k_pos = (long long)Hk * d;
+  const long long v_pos = (long long)Hk * dv, o_pos = (long long)H * dv;
   const T* qb = q + ((long long)b * S * H + h) * d;
   const T* kb = k + ((long long)b * S_kv * Hk + hk) * d;
-  const T* vb = v + ((long long)b * S_kv * Hk + hk) * d;
-  T* ob = o + ((long long)b * S * H + h) * d;
+  const T* vb = v + ((long long)b * S_kv * Hk + hk) * dv;
+  T* ob = o + ((long long)b * S * H + h) * dv;
 
   // q, scaled, split once: (hi, lo) = (tf32(x), tf32(x - hi))
   for (int e = tid; e < BQ * dp; e += NTH) {
@@ -277,37 +285,47 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
     w[4 + a] = lo;
   }
   // each thread's walks, stepping NTH: over the staged 16-byte chunks (d / 4
-  // a row); over (key, 8-dim group) for K's split and (key pair, 4-dim
-  // chunk) for V's, key or pair fastest
-  const int n4 = d >> 2;
+  // a K row, dv / 4 a V row); over (key, 8-dim group) for K's split and (key
+  // pair, 4-dim chunk) for V's, key or pair fastest
+  const int n4 = d >> 2, n4v = dv >> 2;
   const int s_r0 = vec ? tid / n4 : 0, s_c0 = vec ? tid - s_r0 * n4 : 0;
   const int s_dr = vec ? NTH / n4 : 0, s_dc = vec ? NTH - s_dr * n4 : 0;
+  const int v_r0 = vec ? tid / n4v : 0, v_c0 = vec ? tid - v_r0 * n4v : 0;
+  const int v_dr = vec ? NTH / n4v : 0, v_dc = vec ? NTH - v_dr * n4v : 0;
   auto stage = [&](int k0) {
     for (int r = s_r0, c = s_c0; r < BK;) {
       const int j = k0 + r;
-      if (j < S_kv) {
-        cp_async16(sStage + r * dp + 4 * c, kb + j * kv_pos + 4 * c);
-        cp_async16(sStage + (BK + r) * dp + 4 * c, vb + j * kv_pos + 4 * c);
-      }
+      if (j < S_kv) cp_async16(sStage + r * dp + 4 * c, kb + j * k_pos + 4 * c);
       r += s_dr;
       c += s_dc;
       if (c >= n4) c -= n4, ++r;
     }
+    for (int r = v_r0, c = v_c0; r < BK;) {
+      const int j = k0 + r;
+      if (j < S_kv)
+        cp_async16(sStageV + r * dvp + 4 * c, vb + j * v_pos + 4 * c);
+      r += v_dr;
+      c += v_dc;
+      if (c >= n4v) c -= n4v, ++r;
+    }
   };
   // 4 dims [c0, c0 + 4) of key row r (rows >= BK: V's), zeros past S_kv
-  // (a weight of 0 times stale data could be NaN) and past d
+  // (a weight of 0 times stale data could be NaN) and past d (V: dv)
   auto row4 = [&](int k0, int r, int c0) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int kr = r < BK ? r : r - BK, j = k0 + kr;
+    const bool is_k = r < BK;
+    const int kr = is_k ? r : r - BK, j = k0 + kr, w = is_k ? d : dv;
     if (j >= S_kv) return x;
     if (vec) {
-      if (c0 < d) x = *reinterpret_cast<const float4*>(sStage + r * dp + c0);
+      if (c0 < w)
+        x = *reinterpret_cast<const float4*>(is_k ? sStage + kr * dp + c0
+                                                  : sStageV + kr * dvp + c0);
     } else {
-      const T* src = (r < BK ? kb : vb) + j * kv_pos;
-      if (c0 < d) x.x = to_f(src[c0]);
-      if (c0 + 1 < d) x.y = to_f(src[c0 + 1]);
-      if (c0 + 2 < d) x.z = to_f(src[c0 + 2]);
-      if (c0 + 3 < d) x.w = to_f(src[c0 + 3]);
+      const T* src = is_k ? kb + j * k_pos : vb + j * v_pos;
+      if (c0 < w) x.x = to_f(src[c0]);
+      if (c0 + 1 < w) x.y = to_f(src[c0 + 1]);
+      if (c0 + 2 < w) x.z = to_f(src[c0 + 2]);
+      if (c0 + 3 < w) x.w = to_f(src[c0 + 3]);
     }
     return x;
   };
@@ -332,14 +350,15 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
   const int wskip = window > 0 && S < (long long)S_kv + window ? window : 0;
   const int t_lo = wskip ? max(0, q0 - wskip + 1) / BK : 0;
   const int warp_row = q0 + warp * 16;  // the warp's first row
+  const int n_split = BK * max(nks, nvs);  // the split's walk
   if (vec) stage(t_lo * BK);
   cp_commit();
   for (int t = t_lo; t < n_tiles; ++t) {
     const int k0 = t * BK;
     cp_wait<0>();
     __syncthreads();  // tile t staged; the split words consumed
-    for (int e = tid; e < BK * nks; e += NTH) {
-      {  // K: key j, dims [8 grp, 8 grp + 8)
+    for (int e = tid; e < n_split; e += NTH) {
+      if (e < BK * nks) {  // K: key j, dims [8 grp, 8 grp + 8)
         const int j = e % BK, grp = e / BK;
         const float4 x0 = row4(k0, j, 8 * grp), x1 = row4(k0, j, 8 * grp + 4);
         const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
@@ -352,14 +371,14 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
         for (int i = 0; i < 4; ++i)
           w[i] = make_uint4(hi[i], hi[i + 4], lo[i], lo[i + 4]);
       }
-      {  // V: keys 2p, 2p + 1, dims [4 c4, 4 c4 + 4)
+      if (e < BK * nvs) {  // V: keys 2p, 2p + 1, dims [4 c4, 4 c4 + 4)
         const int p = e % (BK / 2), c4 = e / (BK / 2);
         const float4 x0 = row4(k0, BK + 2 * p, 4 * c4);
         const float4 x1 = row4(k0, BK + 2 * p + 1, 4 * c4);
         const float y0[4] = {x0.x, x0.y, x0.z, x0.w};
         const float y1[4] = {x1.x, x1.y, x1.z, x1.w};
         uint4* w = reinterpret_cast<uint4*>(sVf) +
-                   ((p >> 2) * nks + (c4 >> 1)) * 32 + (c4 & 1) * 16 + (p & 3);
+                   ((p >> 2) * nvs + (c4 >> 1)) * 32 + (c4 & 1) * 16 + (p & 3);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           unsigned h0, l0, h1, l1;
@@ -451,11 +470,11 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
       // the n-tiles in groups of 4, one pass a term within a group
 #pragma unroll
       for (int n0 = 0; n0 < NT; n0 += 4) {
-        if (n0 >= nks) break;
+        if (n0 >= nvs) break;
         uint4 bv[4];
 #pragma unroll
         for (int n = 0; n < 4; ++n)  // zeros past the padded dims
-          bv[n] = n0 + n < nks ? vf[(kk * nks + n0 + n) * 32]
+          bv[n] = n0 + n < nvs ? vf[(kk * nvs + n0 + n) * 32]
                                : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
         for (int n = 0; n < 4; ++n) mma_tf32(acc[n0 + n], al, bv[n].x, bv[n].y);
@@ -477,7 +496,7 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = row0 + 8 * (e >> 1), c = n * 8 + 2 * t4 + (e & 1);
-      if (i < S && c < d) store_f(&ob[i * q_pos + c], acc[n][e] * l_r[e >> 1]);
+      if (i < S && c < dv) store_f(&ob[i * o_pos + c], acc[n][e] * l_r[e >> 1]);
     }
 }
 
@@ -749,10 +768,11 @@ __global__ void __launch_bounds__(kDThreads)
 
 // ------------------------------------------------------------ launch ----
 
-// the most shared memory K6 takes at head dim d (the 8-warp tile up to
-// D = 128)
-size_t flash_smem(int d) {
-  return d > 128 ? flash_smem_t<4, 16>(d) : flash_smem_t<8, 32>(d);
+// the most shared memory K6 takes at head dims d (q, k) and dv (v): the
+// 8-warp tile up to max(d, dv) = 128
+size_t flash_smem(int d, int dv) {
+  return max(d, dv) > 128 ? flash_smem_t<4, 16>(d, dv)
+                          : flash_smem_t<8, 32>(d, dv);
 }
 
 size_t decode_smem(int rep, int d, int size) {
@@ -762,26 +782,27 @@ size_t decode_smem(int rep, int d, int size) {
 
 template <typename T, int DMAX, int WARPS, int KEYS>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int S_kv, int H, int Hk, int d,
+                         int B, int S, int S_kv, int H, int Hk, int d, int dv,
                          int causal, int window, float sm_scale,
                          cudaStream_t stream) {
   using F = FlashTile<WARPS, KEYS>;
-  const size_t smem = flash_smem_t<WARPS, KEYS>(d);
+  const size_t smem = flash_smem_t<WARPS, KEYS>(d, dv);
   auto kern = flash_kernel<T, DMAX, WARPS, KEYS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const int vec = sizeof(T) == 4 && d % 4 == 0 &&
+  const int vec = sizeof(T) == 4 && d % 4 == 0 && dv % 4 == 0 &&
                   ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + F::kBQ - 1) / F::kBQ));
   kern<<<grid, F::kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, S_kv, H, Hk, d, causal,
-      window, sm_scale, vec);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, S_kv, H, Hk, d, dv,
+      causal, window, sm_scale, vec);
   return cudaGetLastError();
 }
 
-// K6's tile for head dims up to DMAX: 8 warps (128 query rows) over 32
-// keys up to D = 128 where those blocks fill the card's sms SMs twice;
+// K6's tile for head dims (the larger of d and dv) up to DMAX: 8 warps (128
+// query rows) over 32 keys up to D = 128 where those blocks fill the card's
+// sms SMs twice;
 // 4 warps (64 rows) over kSmallBK keys where they do not (the serve
 // path's prefill, B=4, S=128: 160 blocks of 128 rows, one to an SM,
 // would run in two waves, the second a fifth full); 4 warps over 16 keys
@@ -789,37 +810,41 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
 template <typename T, int DMAX>
 cudaError_t launch_flash_tile(const void* q, const void* k, const void* v,
                               void* o, int B, int S, int S_kv, int H, int Hk,
-                              int d, int causal, int window, float sm_scale,
-                              int sms, cudaStream_t stream) {
+                              int d, int dv, int causal, int window,
+                              float sm_scale, int sms, cudaStream_t stream) {
   if constexpr (DMAX > 128) {
-    return launch_flash<T, DMAX, 4, 16>(q, k, v, o, B, S, S_kv, H, Hk, d,
+    return launch_flash<T, DMAX, 4, 16>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
                                         causal, window, sm_scale, stream);
   } else {
     if ((long long)B * H * ((S + 127) / 128) >= 2LL * sms)
       return launch_flash<T, DMAX, 8, 32>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                          causal, window, sm_scale, stream);
+                                          dv, causal, window, sm_scale,
+                                          stream);
     return launch_flash<T, DMAX, 4, kSmallBK>(q, k, v, o, B, S, S_kv, H, Hk,
-                                              d, causal, window, sm_scale,
+                                              d, dv, causal, window, sm_scale,
                                               stream);
   }
 }
 
+// the tile template from the larger head dim: minicpm3's MLA prefill (q, k
+// 96, v 64) takes DMAX 128
 template <typename T>
 cudaError_t launch_flash_d(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int S_kv, int H, int Hk,
-                           int d, int causal, int window, float sm_scale,
-                           int sms, cudaStream_t stream) {
-  if (d <= 32)
-    return launch_flash_tile<T, 32>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                    window, sm_scale, sms, stream);
-  if (d <= 64)
-    return launch_flash_tile<T, 64>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                    window, sm_scale, sms, stream);
-  if (d <= 128)
-    return launch_flash_tile<T, 128>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                     window, sm_scale, sms, stream);
-  return launch_flash_tile<T, 256>(q, k, v, o, B, S, S_kv, H, Hk, d, causal,
-                                   window, sm_scale, sms, stream);
+                           int d, int dv, int causal, int window,
+                           float sm_scale, int sms, cudaStream_t stream) {
+  const int dm = max(d, dv);
+  if (dm <= 32)
+    return launch_flash_tile<T, 32>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
+                                    causal, window, sm_scale, sms, stream);
+  if (dm <= 64)
+    return launch_flash_tile<T, 64>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
+                                    causal, window, sm_scale, sms, stream);
+  if (dm <= 128)
+    return launch_flash_tile<T, 128>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
+                                     causal, window, sm_scale, sms, stream);
+  return launch_flash_tile<T, 256>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
+                                   causal, window, sm_scale, sms, stream);
 }
 
 template <typename T>
@@ -856,31 +881,33 @@ size_t dtype_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
 extern "C" {
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. q (B, S, H, d), k and v
-// (B, S_kv, Hk, d), o (B, S, H, d), all contiguous; S, S_kv >= 1 and
+// dtype: 0 float32, 1 float16, 2 bfloat16. q (B, S, H, d), k (B, S_kv, Hk,
+// d), v (B, S_kv, Hk, dv), o (B, S, H, dv), all contiguous; S, S_kv >= 1 and
 // S <= 65535 * 64; window 0 (none) or the sliding window (keys j > i -
 // window); sms the card's SM count (the tile's choice). Returns a
 // cudaError_t (0 = launched).
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* o, int B, int S, int S_kv,
-                           int H, int Hk, int d, int causal, int window,
-                           float sm_scale, int sms, void* stream_) {
+                           int H, int Hk, int d, int dv, int causal,
+                           int window, float sm_scale, int sms,
+                           void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  if (!shapes_ok(B, H, Hk, d) || S < 1 || S_kv < 1 || sms < 1 || window < 0 ||
-      (S + 63) / 64 > 65535 || flash_smem(d) > (size_t)kMaxSmem)
+  if (!shapes_ok(B, H, Hk, d) || dv < 1 || dv > kMaxD || S < 1 ||
+      S_kv < 1 || sms < 1 || window < 0 || (S + 63) / 64 > 65535 ||
+      flash_smem(d, dv) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return (int)launch_flash_d<float>(q, k, v, o, B, S, S_kv, H, Hk, d,
+      return (int)launch_flash_d<float>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
                                         causal, window, sm_scale, sms, stream);
     case 1:
-      return (int)launch_flash_d<__half>(q, k, v, o, B, S, S_kv, H, Hk, d,
+      return (int)launch_flash_d<__half>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
                                          causal, window, sm_scale, sms,
                                          stream);
     case 2:
       return (int)launch_flash_d<__nv_bfloat16>(q, k, v, o, B, S, S_kv, H, Hk,
-                                                d, causal, window, sm_scale,
-                                                sms, stream);
+                                                d, dv, causal, window,
+                                                sm_scale, sms, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,9 @@ there). Each kernel has two entries:
   keys and values with query head ``h`` on kv head ``h // (H // Hk)``:
   ``flash_attention_gqa`` (called by ``models.flash.flash_mha``) and
   ``decode_attention_gqa`` (called by ``transformer._decode_gqa``).
+  ``flash_attention_gqa``'s values may have a head dim ``Dv`` of their own
+  (MLA's prefill: q and k 96 wide, v 64), and its output is then
+  ``(B, S, H, Dv)``; every other entry takes one head dim.
 
 Sizes are run-time: no block has to divide S or S_kv (the reference
 asserts it). ``block_q`` and ``block_k`` are kept for the reference's
@@ -71,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                           i, i, f, i, p]
+                                           i, i, i, f, i, p]
     lib.flash_attention_launch.restype = i
     lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
                                             i, i, f, i, p]
@@ -112,26 +115,30 @@ def _raise_on(rc, what):
                            + _lib().attention_error_string(rc).decode())
 
 
-def _check_heads(what, h, hk, d, dk, dv):
+def _check_heads(what, h, hk, d, dk, dv, *, own_dv=False):
+    """Query heads group over kv heads; q and k share a head dim, and so
+    does v unless ``own_dv`` (K6 in the model's layout)."""
     if hk < 1 or h % hk:
         raise ValueError(f"{what}: {h} query heads do not group over {hk} "
                          f"kv heads")
-    if not d == dk == dv:
+    if d != dk or (dv != d and not own_dv):
         raise ValueError(f"{what}: q, k and v head dims differ ({d}, {dk}, "
                          f"{dv})")
 
 
 def _launch_flash(q, k, v, causal, window, sm_scale):
-    """K6 on contiguous ``(B, S, H, D)`` / ``(B, S_kv, Hk, D)`` CUDA
-    tensors, masked to the sliding window where ``window > 0``; the
-    output is ``(B, S, H, D)`` in q's dtype."""
+    """K6 on contiguous ``(B, S, H, D)`` / ``(B, S_kv, Hk, D)`` q, k and
+    ``(B, S_kv, Hk, Dv)`` v CUDA tensors, masked to the sliding window where
+    ``window > 0``; the output is ``(B, S, H, Dv)`` in q's dtype."""
     what = "flash_attention"
     _check_cuda(what, q, k, v)
     b, s, h, d = q.shape
-    s_kv, hk = k.shape[1], k.shape[2]
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d} outside [1, {MAX_HEAD_DIM}]")
-    out = torch.empty_like(q)
+    s_kv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    for dim in (d, dv):
+        if not 1 <= dim <= MAX_HEAD_DIM:
+            raise ValueError(f"{what}: head dim {dim} outside [1, "
+                             f"{MAX_HEAD_DIM}]")
+    out = q.new_empty((b, s, h, dv))
     if out.numel() == 0:
         return out
     if s_kv == 0:
@@ -140,7 +147,7 @@ def _launch_flash(q, k, v, causal, window, sm_scale):
     rc = device.launch(
         q.device, _lib().flash_attention_launch, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s_kv,
-        h, hk, d, int(bool(causal)), int(window), float(sm_scale),
+        h, hk, d, dv, int(bool(causal)), int(window), float(sm_scale),
         sm_count(q.device.index),
     )
     _raise_on(rc, what)
@@ -242,8 +249,9 @@ flash_attention.launches = 0
 
 def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
                         q_block: int = 512, kv_block: int = 512):
-    """``flash_mha``'s function: q ``(B, S, H, D)`` over k, v
-    ``(B, S_kv, Hk, D)``, scale ``D**-0.5`` → ``(B, S, H, D)``.
+    """``flash_mha``'s function: q ``(B, S, H, D)`` over k ``(B, S_kv, Hk,
+    D)`` and v ``(B, S_kv, Hk, Dv)``, scale ``D**-0.5`` → ``(B, S, H, Dv)``
+    (``Dv`` differs from ``D`` in MLA's prefill, 64 against 96).
     ``window > 0`` masks keys ``j <= i - window`` (gemma3's sliding
     window, the reference's ``flash._mask``). ``q_block``/``kv_block`` are
     the plain version's blocks."""
@@ -252,12 +260,12 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention_gqa: window {window} < 0")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or (
             k.shape[:3] != v.shape[:3]):
-        raise ValueError("flash_attention_gqa: q must be (B, S, H, D) and "
-                         "k, v (B, S_kv, Hk, D)")
+        raise ValueError("flash_attention_gqa: q must be (B, S, H, D), k "
+                         "(B, S_kv, Hk, D) and v (B, S_kv, Hk, Dv)")
     if q.shape[0] != k.shape[0]:
         raise ValueError("flash_attention_gqa: batch sizes differ")
     _check_heads("flash_attention_gqa", q.shape[2], k.shape[2], q.shape[3],
-                 k.shape[3], v.shape[3])
+                 k.shape[3], v.shape[3], own_dv=True)
     if _device("flash_attention_gqa", q, k, v).type == "cpu":
         return flash_gqa_ref(q, k, v, causal=causal, window=int(window),
                              q_block=q_block, kv_block=kv_block)

@@ -59,8 +59,9 @@ def window_mask(q_pos, k_pos, causal, window):
 
 def flash_gqa_ref(q, k, v, *, causal=True, window=0, q_block=512,
                   kv_block=512):
-    """``flash_mha``'s blocked online softmax: q ``(B, S, H, D)``, k and v
-    ``(B, S_kv, Hk, D)``, query head ``h`` on kv head ``h // (H // Hk)``,
+    """``flash_mha``'s blocked online softmax: q ``(B, S, H, D)``, k
+    ``(B, S_kv, Hk, D)`` and v ``(B, S_kv, Hk, Dv)`` (the output is
+    ``(B, S, H, Dv)``), query head ``h`` on kv head ``h // (H // Hk)``,
     scale ``D**-0.5``. The last block of either axis may be ragged (the
     reference asserts that the blocks divide S and S_kv)."""
     b, s, h, d = q.shape

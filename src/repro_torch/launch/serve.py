@@ -9,7 +9,11 @@ local layers over a ring of 1024 positions). A Mamba-1 stack
 (falcon-mamba-7b) carries a recurrent state per layer instead and
 launches no attention kernel; zamba2-7b's Mamba-2 layers carry theirs
 and its shared attention block launches K7 once per application (13 a
-step). Greedy sampling, for determinism.
+step). minicpm3-4b's MLA layers decode in latent space in plain torch
+(no kernel). whisper-tiny's decoder launches K7 and, for its cross
+attention, K6 once a layer a step: ``serve_batch`` passes no encoder
+output, as the reference's does, so that layer attends each token to
+itself (ROADMAP queue 3). Greedy sampling, for determinism.
 
 Run on the card (``PYTHONPATH=src``)::
 
@@ -23,8 +27,13 @@ Run on the card (``PYTHONPATH=src``)::
         --prompt-len 128 --max-new 32
     python -m repro_torch.launch.serve --arch gemma3-4b --batch 4 \\
         --prompt-len 128 --max-new 32
+    python -m repro_torch.launch.serve --arch minicpm3-4b --batch 4 \\
+        --prompt-len 128 --max-new 32
+    python -m repro_torch.launch.serve --arch whisper-tiny --batch 4 \\
+        --prompt-len 128 --max-new 32
 
-zamba2-7b (27.00 GB in float32) and gemma3-4b (15.52 GB) run whole.
+zamba2-7b (27.00 GB in float32), gemma3-4b (15.52 GB), minicpm3-4b
+(16.30 GB) and whisper-tiny (0.146 GB) run whole.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Blocked (flash-style) attention, the forward only.
 
 ``flash_mha`` is the port of the reference's ``flash_mha``
-(``src/repro/models/flash.py``): q ``(B, S, H, D)`` over k, v
-``(B, S_kv, Hk, D)``, query head ``h`` on kv head ``h // (H // Hk)``,
+(``src/repro/models/flash.py``): q ``(B, S, H, D)`` over k
+``(B, S_kv, Hk, D)`` and v ``(B, S_kv, Hk, Dv)`` (``Dv`` differs from
+``D`` in MLA's prefill), query head ``h`` on kv head ``h // (H // Hk)``,
 scale ``D**-0.5``, online softmax in float32. On a CUDA tensor it
 launches the flash attention kernel K6
 (``kernels/attention/csrc/attention.cu``, the twin of the TPU kernel the
@@ -28,7 +29,7 @@ __all__ = ["NEG_INF", "flash_mha", "attention_ref"]
 def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
               q_block: int = 512, kv_block: int = 512,
               skip_masked_blocks: bool = True):
-    """``(B, S, H, D)`` attention; ``skip_masked_blocks`` is kept for the
+    """``(B, S, H, Dv)`` attention; ``skip_masked_blocks`` is kept for the
     reference's signature (the card kernel always stops at the causal
     diagonal, and the skipped blocks add exactly zero)."""
     del skip_masked_blocks

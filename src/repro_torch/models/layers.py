@@ -1,5 +1,6 @@
-"""Layer library, the parts the serving path runs: norms, RoPE, GQA and
-MLP parameters, MLPs and mixture-of-experts FFNs.
+"""Layer library, the parts the serving path runs: norms, RoPE, GQA
+attention (self, encoder and cross), MLA attention, MLPs and
+mixture-of-experts FFNs.
 
 Plain functions on tensors, as in the reference
 (``src/repro/models/layers.py``): every layer is ``init(generator, cfg,
@@ -9,11 +10,17 @@ and ``apply(params, x, ...) -> y``. Random weights come from an explicit
 the reference's ``jax.random`` draws; ``models/convert.py`` carries the
 reference's own weights across, bit for bit, for the tests.
 
+``gqa_apply`` is the reference's general GQA layer (whisper's encoder,
+its decoder's cross attention, and the cached branch that no path calls);
+the decoders' own full-sequence attention is ``transformer._gqa_train``.
+``mla_apply`` is minicpm3's multi-head latent attention: the prefill
+expands the latent to per-head K (96 wide) and V (64 wide) for the flash
+kernel K6, the decode step attends in latent space, absorbed, in plain
+torch as the reference does (it has no kernel there).
+
 MoE (``moe_init``, ``moe_apply``) has both of the reference's paths, the
 capacity path in plain torch and the dropless one on the grouped matmul
-kernel K9. MLA and the cross/encoder attention of ``gqa_apply`` are not
-ported yet: their functions raise ``NotImplementedError`` naming the
-ROADMAP item.
+kernel K9.
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.kernels.moe_group_mm.ops import moe_ffn, route
+from repro_torch.models.flash import flash_mha
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,19 +119,173 @@ def gqa_init(generator, cfg: ArchConfig, dt: Dtypes, device):
     return p
 
 
-def gqa_apply(*args, **kwargs):
-    """Cross and encoder attention (whisper) are not ported yet."""
-    raise NotImplementedError(
-        "gqa_apply (cross/encoder attention, whisper) is not ported yet "
-        "(ROADMAP queue 1, item 12d)")
+def _sdpa(q, k, v, mask):
+    """``(B, S, H, D)`` attention over ``(B, S_kv, H, D)`` keys and values
+    under a boolean ``mask`` broadcast to ``(B, H, S, S_kv)``, scores and
+    softmax in float32: the reference's plain attention."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
-def mla_init(*args, **kwargs):
-    raise NotImplementedError(
-        "MLA (minicpm3) is not ported yet (ROADMAP queue 1, item 12d)")
+def _write_rows(cache, rows, at):
+    """``cache[b, at[b]:at[b] + S] = rows[b]`` in place, for ``cache``
+    ``(B, S_max, ...)`` and ``rows`` ``(B, S, ...)``; a start past
+    ``S_max - S`` is clamped, as ``lax.dynamic_update_slice`` clamps it."""
+    b, s = rows.shape[:2]
+    start = torch.clamp(at.long(), 0, cache.shape[1] - s)
+    idx = start[:, None] + torch.arange(s, device=cache.device)
+    cache[torch.arange(b, device=cache.device)[:, None], idx] = rows.to(
+        cache.dtype)
 
 
-mla_apply = mla_init
+def gqa_apply(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
+              window: int = 0, kv_cache=None, cache_len=None, kv_source=None,
+              use_rope: bool = True, eps: float = 1e-6):
+    """The reference's GQA layer (``src/repro/models/layers.py:103``) on
+    ``x`` ``(B, S, d)``, one of four branches:
+
+    - cross attention: K/V from ``kv_source`` ``(B, S_enc, d)`` (whisper's
+      encoder output), every key visible, no RoPE;
+    - ``causal=False``: every key visible (whisper's encoder);
+    - causal, no cache: keys at positions ``<=`` the query's (and inside
+      ``window`` where > 0); whisper's decoder serves its cross layer so,
+      one token over itself, when no encoder output is given;
+    - ``kv_cache=(k, v)`` ``(B, S_max, nk, hd)``: the new K/V are written
+      at ``cache_len`` in place (the reference returns a new cache) and
+      every query attends to the keys at or before the first query's
+      position. No path of either package calls this branch; it runs
+      ``_sdpa``, the reference's plain attention. Returns ``(y, (k, v))``.
+
+    The first three run blocked flash attention (``flash_mha``: the
+    kernel K6 on the card, its plain loop on the CPU), causal in the
+    third. Its mask counts positions by index, so there ``positions``
+    must count up by one along S in every row (as every caller's do:
+    ``arange(S)``, or one position a row)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nh, nk = cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, nh, hd)
+    src = kv_source if kv_source is not None else x
+    k = (src @ p["wk"].to(x.dtype)).reshape(b, src.shape[1], nk, hd)
+    v = (src @ p["wv"].to(x.dtype)).reshape(b, src.shape[1], nk, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], eps)
+        k = rms_norm(k, p["k_norm"], eps)
+    if use_rope and kv_source is None:
+        q = rope(q, positions[:, :, None], cfg.rope_theta)
+        k = rope(k, positions[:, :, None], cfg.rope_theta)
+
+    if kv_cache is None:
+        out = flash_mha(q, k, v, causal=causal and kv_source is None,
+                        window=window if causal and kv_source is None else 0)
+        return out.reshape(b, s, nh * hd) @ p["wo"].to(x.dtype)
+
+    ck, cv = kv_cache
+    _write_rows(ck, k, cache_len)
+    _write_rows(cv, v, cache_len)
+    rep = nh // nk
+    k, v = ck.repeat_interleave(rep, dim=2), cv.repeat_interleave(rep, dim=2)
+    k_pos = torch.arange(ck.shape[1], device=x.device)[None, :]
+    mask = (k_pos <= positions[:, :1])[:, None, None, :]  # the frontier
+    if window:
+        mask = mask & (k_pos[:, None, None, :]
+                       > positions[:, None, :, None] - window)
+    out = _sdpa(q, k, v, mask)
+    return out.reshape(b, s, nh * hd) @ p["wo"].to(x.dtype), (ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (minicpm3)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(generator, cfg: ArchConfig, dt: Dtypes, device):
+    d = cfg.d_model
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    nh = cfg.n_heads
+    s = d ** -0.5
+    return {
+        "wq_a": _init(generator, (d, r_q), s, dt.param, device),
+        "wq_b": _init(generator, (r_q, nh * (dn + dr)), r_q ** -0.5,
+                      dt.param, device),
+        "wkv_a": _init(generator, (d, r_kv + dr), s, dt.param, device),
+        "wkv_b": _init(generator, (r_kv, nh * (dn + dv)), r_kv ** -0.5,
+                       dt.param, device),
+        "wo": _init(generator, (nh * dv, d), (nh * dv) ** -0.5, dt.param,
+                    device),
+        "q_a_norm": torch.zeros(r_q, dtype=dt.param, device=device),
+        "kv_a_norm": torch.zeros(r_kv, dtype=dt.param, device=device),
+    }
+
+
+def mla_apply(p, x, cfg: ArchConfig, *, positions, kv_cache=None,
+              cache_len=None, eps: float = 1e-6):
+    """Multi-head latent attention (``src/repro/models/layers.py:195``) on
+    ``x`` ``(B, S, d)``. Queries go through a rank-``q_lora_rank``
+    bottleneck; keys and values come from one normed latent of
+    ``kv_lora_rank`` and a rotary key of ``qk_rope_dim`` shared by every
+    head. Scale ``(qk_nope_dim + qk_rope_dim)**-0.5``.
+
+    - No cache (prefill): the latent is expanded to per-head K (``dn +
+      dr`` wide) and V (``dv`` wide) and attended causally by
+      ``flash_mha`` (K6 on the card, one launch; its V head dim differs
+      from q's and k's).
+    - ``kv_cache=(latent (B, S_max, r_kv), k_rope (B, S_max, dr))``
+      (decode): the new rows are written at ``cache_len`` in place (the
+      reference returns a new cache), and the queries attend in latent
+      space, ``W_uk`` absorbed into q and ``W_uv`` into the output, to
+      the keys at or before the first query's position: plain torch, as
+      in the reference. Returns ``(y, (latent, k_rope))``."""
+    b, s, _ = x.shape
+    nh = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+
+    q_lat = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_a_norm"], eps)
+    q = (q_lat @ p["wq_b"].to(x.dtype)).reshape(b, s, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions[:, :, None], cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"].to(x.dtype)
+    latent = rms_norm(kv_a[..., :r_kv], p["kv_a_norm"], eps)
+    k_rope = rope(kv_a[..., r_kv:][:, :, None, :], positions[:, :, None],
+                  cfg.rope_theta)[:, :, 0, :]
+
+    if kv_cache is not None:
+        c_lat, c_kr = kv_cache
+        _write_rows(c_lat, latent, cache_len)
+        _write_rows(c_kr, k_rope, cache_len)
+        latent, k_rope = c_lat, c_kr
+
+    s_kv = latent.shape[1]
+    wkv_b = p["wkv_b"].to(x.dtype).reshape(r_kv, nh, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]  # (r, nh, dn), (r, nh, dv)
+
+    if kv_cache is None:
+        k_nope = torch.einsum("bkr,rhd->bkhd", latent, w_uk)
+        v_full = torch.einsum("bkr,rhd->bkhd", latent, w_uv)
+        k_full = torch.cat(
+            [k_nope, k_rope[:, :, None, :].expand(b, s_kv, nh, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_mha(q_full, k_full, v_full, causal=True)
+        return out.reshape(b, s, nh * dv) @ p["wo"].to(x.dtype)
+
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # (b, s, nh, r)
+    scores = torch.einsum("bshr,bkr->bhsk", q_abs.float(), latent.float())
+    scores = scores + torch.einsum("bshd,bkd->bhsk", q_rope.float(),
+                                   k_rope.float())
+    scores = scores * ((dn + dr) ** -0.5)
+    k_pos = torch.arange(s_kv, device=x.device)[None, :]
+    mask = (k_pos <= positions[:, :1])[:, None, None, :]
+    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhsk,bkr->bshr", w, latent)  # (b, s, nh, r)
+    out = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)  # W_uv absorbed
+    y = out.reshape(b, s, nh * dv) @ p["wo"].to(x.dtype)
+    return y, kv_cache
 
 
 # ---------------------------------------------------------------------------

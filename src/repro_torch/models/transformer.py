@@ -1,11 +1,12 @@
 """Model assembly, the serving subset.
 
 The port of the reference's model API (``src/repro/models/transformer.py``)
-for the decoders without MLA or an encoder: the dense GQA ones
-(qwen3-14b, starcoder2-7b, internvl2-76b's backbone, and gemma3-4b with
-its sliding-window layers), the mixture-of-experts ones (phi3.5-moe,
-moonshot), the pure Mamba-1 one (falcon-mamba-7b) and the Mamba-2 hybrid
-(zamba2-7b):
+for all ten configurations: the dense GQA decoders (qwen3-14b,
+starcoder2-7b, internvl2-76b's backbone, and gemma3-4b with its
+sliding-window layers), the mixture-of-experts ones (phi3.5-moe,
+moonshot), the MLA decoder (minicpm3-4b), the encoder-decoder
+(whisper-tiny), the pure Mamba-1 one (falcon-mamba-7b) and the Mamba-2
+hybrid (zamba2-7b):
 
   init_params(generator, cfg, dt, device=)     -> params (layer-stacked)
   forward_hidden(params, tokens, cfg, dt)      -> final-normed hidden states
@@ -34,11 +35,19 @@ every ``shared_attn_every`` of them, on K6 and K7 like a dense layer,
 with a KV cache for each of its applications. MoE layers take the reference's
 capacity path, in plain torch, as the reference's serving does; the
 grouped matmul kernel K9 runs on the dropless path
-(``layers.moe_apply(use_kernel=True)``). On the CPU every kernel runs its
-plain version.
+(``layers.moe_apply(use_kernel=True)``).
 
-Other configurations raise ``NotImplementedError`` naming their ROADMAP
-item (``check_supported``).
+minicpm3's MLA layers prefill on K6 with a value head dim of their own
+(q, k 96, v 64) and decode in latent space in plain torch over the
+``"mla"`` cache of latent and rotary-key rows (the reference has no
+kernel there). whisper's encoder runs non-causal ``layers.gqa_apply`` on
+K6 over the stub frame embeddings (``frontend``, ``(B, 1500, 384)``);
+each decoder layer adds cross attention to the encoder output (K6), and
+its decode step recomputes that cross attention from ``enc_out`` every
+step (``_cross_decode``). Without ``enc_out`` (``serve_batch`` passes
+none, as the reference's does) the cross layer attends one token to
+itself; the ``"cross_kv"`` cache is allocated and never read, as in the
+reference. On the CPU every kernel runs its plain version.
 """
 
 from __future__ import annotations
@@ -58,21 +67,13 @@ Dtypes = L.Dtypes
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a GQA decoder
-    (dense, sliding-window or MoE), a Mamba-1 stack or the Mamba-2
-    hybrid: the families the port serves."""
-    if cfg.ssm is not None:
-        return
-    if cfg.attn_type != "gqa":
-        what = f"{cfg.attn_type} attention"
-    elif cfg.enc_dec:
-        what = "the encoder-decoder stack"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1, item "
-        f"12d); the port serves GQA decoders (dense, sliding-window or "
-        f"MoE), Mamba-1 and the Mamba-2 hybrid")
+    """Raise ``ValueError`` unless ``cfg`` is a Mamba stack or has GQA or
+    MLA attention: the attention types the reference has code for."""
+    if cfg.ssm is None and cfg.attn_type not in ("gqa", "mla"):
+        raise ValueError(
+            f"{cfg.name}: attn_type {cfg.attn_type!r} without an SSM; the "
+            f"models (both packages) have GQA and MLA attention and Mamba "
+            f"layers only")
 
 
 def layer_params(stacked, i: int):
@@ -87,17 +88,20 @@ def layer_params(stacked, i: int):
 
 
 def _layer_init(generator, cfg: ArchConfig, dt: Dtypes, device, kind: str):
-    """One layer: a Mamba block (``kind="ssm"``), or attention and an MLP
-    (``"attn"``; ``"moe"`` in place of ``"mlp"`` for an MoE config)."""
+    """One layer: a Mamba block (``kind="ssm"``), or attention (GQA or
+    MLA) and an MLP (``"attn"``; ``"moe"`` in place of ``"mlp"`` for an
+    MoE config), with cross attention to the encoder between them
+    (``"cross"``, whisper's decoder)."""
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dt.param, device=device)
     if kind == "ssm":
         return {"attn_norm": zeros(),
                 "ssm": S.mamba_init(generator, cfg, dt, device)}
-    p = {
-        "attn_norm": zeros(),
-        "attn": L.gqa_init(generator, cfg, dt, device),
-        "mlp_norm": zeros(),
-    }
+    init = L.mla_init if cfg.attn_type == "mla" else L.gqa_init
+    p = {"attn_norm": zeros(), "attn": init(generator, cfg, dt, device)}
+    if kind == "cross":
+        p["cross_norm"] = zeros()
+        p["cross"] = L.gqa_init(generator, cfg, dt, device)
+    p["mlp_norm"] = zeros()
     if cfg.is_moe:
         p["moe"] = L.moe_init(generator, cfg, dt, device)
     else:
@@ -118,12 +122,27 @@ def _empty_stack(layer, n):
             else v.new_empty((n,) + tuple(v.shape)) for k, v in layer.items()}
 
 
+def _draw_stack(generator, cfg: ArchConfig, dt: Dtypes, dev, kind: str,
+                n: int):
+    """``n`` layers of ``kind`` drawn one at a time into preallocated
+    stacks, so beside them only one layer's weights exist at once."""
+    layer = _layer_init(generator, cfg, dt, dev, kind)
+    stacked = _empty_stack(layer, n)
+    _stack_into(stacked, 0, layer)
+    del layer
+    for i in range(1, n):
+        _stack_into(stacked, i, _layer_init(generator, cfg, dt, dev, kind))
+    return stacked
+
+
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dt: Dtypes = L.FP32, *, device="cuda"):
     """Random parameters drawn from ``generator``, which must live on
-    ``device``. The layers are drawn one at a time into preallocated
-    stacks, so beside the model only one layer's weights exist at once
-    (qwen3-14b in float32 is 59.07 GB, falcon-mamba-7b 28.02 GB).
+    ``device``, in the reference's structure. The layers are drawn one at
+    a time into preallocated stacks (qwen3-14b in float32 is 59.07 GB,
+    falcon-mamba-7b 28.02 GB). whisper's encoder layers (``enc_layers``,
+    self attention and MLP) and decoder layers (``layers``, with cross
+    attention) are two stacks, and ``enc_norm`` ends the encoder.
     zamba2's shared attention block is drawn once, after the layers."""
     dev = resolve_device(device, "init_params")
     check_supported(cfg)
@@ -138,14 +157,17 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = L._init(generator, (cfg.d_model, cfg.vocab),
                                     cfg.d_model ** -0.5, dt.param, dev)
-    kind = "ssm" if cfg.ssm is not None else "attn"
-    layer = _layer_init(generator, cfg, dt, dev, kind)
-    stacked = _empty_stack(layer, cfg.n_layers)
-    _stack_into(stacked, 0, layer)
-    del layer
-    for i in range(1, cfg.n_layers):
-        _stack_into(stacked, i, _layer_init(generator, cfg, dt, dev, kind))
-    params["layers"] = stacked
+    if cfg.enc_dec:
+        params["enc_layers"] = _draw_stack(generator, cfg, dt, dev, "attn",
+                                           cfg.n_enc_layers)
+        params["layers"] = _draw_stack(generator, cfg, dt, dev, "cross",
+                                       cfg.n_layers)
+        params["enc_norm"] = torch.zeros(cfg.d_model, dtype=dt.param,
+                                         device=dev)
+    else:
+        kind = "ssm" if cfg.ssm is not None else "attn"
+        params["layers"] = _draw_stack(generator, cfg, dt, dev, kind,
+                                       cfg.n_layers)
     if cfg.shared_attn_every:
         params["shared_attn"] = _layer_init(generator, cfg, dt, dev, "attn")
     return params
@@ -165,11 +187,21 @@ def _ffn(p, h, cfg: ArchConfig):
 
 
 def _attn_mlp_block(p, x, cfg: ArchConfig, *, positions, window=0,
-                    inference=False):
-    """Pre-norm attention + MLP/MoE; ``window`` is the layer's sliding
-    window (0 = full attention)."""
+                    enc_out=None, inference=False):
+    """Pre-norm attention (GQA or MLA), then cross attention to
+    ``enc_out`` where it is given (whisper's decoder), then the MLP/MoE;
+    ``window`` is the layer's sliding window (0 = full attention)."""
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    x = x + _gqa_train(p["attn"], h, cfg, positions, window, inference)
+    if cfg.attn_type == "mla":
+        a = _mla_train(p, h, cfg, positions)
+    else:
+        a = _gqa_train(p["attn"], h, cfg, positions, window, inference)
+    x = x + a
+    if enc_out is not None:
+        h = L.rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        x = x + L.gqa_apply(p["cross"], h, cfg, positions=positions,
+                            kv_source=enc_out, use_rope=False,
+                            eps=cfg.norm_eps)
     h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + _ffn(p, h, cfg)
 
@@ -201,6 +233,13 @@ def _gqa_train(p, h, cfg: ArchConfig, positions, window=0, inference=False):
     return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(h.dtype)
 
 
+def _mla_train(p, h, cfg: ArchConfig, positions):
+    """Full-sequence causal MLA: the latent expanded to per-head K and V,
+    one K6 launch on the card (``layers.mla_apply``)."""
+    return L.mla_apply(p["attn"], h, cfg, positions=positions,
+                       eps=cfg.norm_eps)
+
+
 def _window_schedule(cfg: ArchConfig) -> list[int]:
     """Each layer's window, 0 for global attention: gemma3's every
     ``(local_global_ratio + 1)``-th layer is global, the others local at
@@ -229,25 +268,35 @@ def _embed(params, tokens, cfg: ArchConfig, dt: Dtypes, frontend=None):
 
 def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
                    frontend=None, inference=False):
-    """Token ids ``(B, S)`` -> final-normed hidden states ``(B, S, d)``."""
+    """Token ids ``(B, S)`` -> final-normed hidden states ``(B, S, d)``.
+    whisper's decoder attends to the encoder's output over ``frontend``,
+    the stub frame embeddings ``(B, frontend_len, d)``, which it needs."""
     check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg, dt, frontend)
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    enc_out = None
+    if cfg.enc_dec:
+        if frontend is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder needs the "
+                             f"frame embeddings (frontend)")
+        enc_out = _encode(params, frontend, cfg, dt)
     if cfg.shared_attn_every:
         x = _hybrid_forward(params, x, cfg, positions, inference)
     elif cfg.ssm is not None:
         x = _scan_ssm(params["layers"], x, cfg, range(cfg.n_layers))
     else:
-        x = _scan_attn(params["layers"], x, cfg, positions, inference)
+        x = _scan_attn(params["layers"], x, cfg, positions, enc_out,
+                       inference)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _scan_attn(stacked, x, cfg: ArchConfig, positions, inference=False):
+def _scan_attn(stacked, x, cfg: ArchConfig, positions, enc_out=None,
+               inference=False):
     for i, window in enumerate(_window_schedule(cfg)):
         x = _attn_mlp_block(layer_params(stacked, i), x, cfg,
                             positions=positions, window=window,
-                            inference=inference)
+                            enc_out=enc_out, inference=inference)
     return x
 
 
@@ -284,6 +333,23 @@ def _hybrid_forward(params, x, cfg: ArchConfig, positions, inference=False):
     return _scan_ssm(params["layers"], x, cfg, rest)
 
 
+def _encode(params, frames, cfg: ArchConfig, dt: Dtypes = L.FP32):
+    """whisper's encoder over stub frame embeddings ``(B, F, d)``: pre-norm
+    non-causal attention without RoPE (one K6 launch a layer on the card)
+    and an MLP per layer, then ``enc_norm``."""
+    x = frames.to(dt.compute)
+    b, f, _ = x.shape
+    positions = torch.arange(f, device=x.device)[None, :].expand(b, f)
+    for i in range(cfg.n_enc_layers):
+        lp = layer_params(params["enc_layers"], i)
+        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        y = x + L.gqa_apply(lp["attn"], h, cfg, positions=positions,
+                            causal=False, use_rope=False, eps=cfg.norm_eps)
+        h = L.rms_norm(y, lp["mlp_norm"], cfg.norm_eps)
+        x = y + L.mlp_apply(lp["mlp"], h, cfg)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
 def _w_out(params, cfg: ArchConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -304,15 +370,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     - a Mamba stack: ``{"ssm": {"conv": (L, batch, K-1, di), "h": (L,
       batch, di, n)}}`` (Mamba-1; Mamba-2's ``h`` is ``(L, batch, nh, 64,
       n)``), float32; zamba2 adds ``"shared_kv"``, ``(applications,
-      batch, max_seq, nk, hd)`` each.
+      batch, max_seq, nk, hd)`` each;
+    - MLA: ``{"mla": (latent (L, batch, max_seq, kv_lora_rank), k_rope
+      (L, batch, max_seq, qk_rope_dim))}``;
+    - whisper: ``"kv"`` and ``"cross_kv"``, ``(L, batch, frontend_len,
+      nk, hd)`` each, which no step reads (``_cross_decode`` recomputes
+      the cross K/V from ``enc_out``), as in the reference.
     """
     dev = resolve_device(device, "init_cache")
     check_supported(cfg)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt.compute, device=dev)
+
     def kv(n, positions):
         shape = (n, batch, positions, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return (torch.zeros(shape, dtype=dt.compute, device=dev),
-                torch.zeros(shape, dtype=dt.compute, device=dev))
+        return zeros(*shape), zeros(*shape)
 
     if cfg.ssm is not None:
         st = S.mamba_init_state(cfg, cfg.n_layers * batch, device=dev)
@@ -327,7 +400,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         return {"local_kv": kv(cfg.n_layers - n_global,
                                min(cfg.sliding_window, max_seq)),
                 "global_kv": kv(n_global, max_seq)}
-    return {"kv": kv(cfg.n_layers, max_seq)}
+    if cfg.attn_type == "mla":
+        return {"mla": (zeros(cfg.n_layers, batch, max_seq, cfg.kv_lora_rank),
+                        zeros(cfg.n_layers, batch, max_seq,
+                              cfg.qk_rope_dim))}
+    cache = {"kv": kv(cfg.n_layers, max_seq)}
+    if cfg.enc_dec:
+        cache["cross_kv"] = kv(cfg.n_layers, cfg.frontend_len)
+    return cache
 
 
 def _decode_gqa(p, x, cfg, cache_kv, lengths, *, positions_t):
@@ -357,38 +437,76 @@ def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
     """One decoding step for the whole batch: tokens ``(B, 1)``, lengths
     ``(B,)`` (unused by a Mamba-1 stack, whose state carries the
     position). Returns ``(logits (B, V), cache)``; the cache is updated
-    in place (the reference returns a new one) and returned."""
+    in place (the reference returns a new one) and returned. ``enc_out``
+    ``(B, S_enc, d)``, whisper's encoder output, feeds its decoder's cross
+    attention; without it that layer attends the token to itself, as in
+    the reference (``serve_batch`` gives none). Other models ignore it."""
     check_supported(cfg)
-    if enc_out is not None:
-        raise NotImplementedError("decode_step: cross attention is not "
-                                  "ported yet (ROADMAP queue 1, item 12d)")
     x = params["embed"][tokens.long()].to(dt.compute)
     if cfg.shared_attn_every:
         x = _hybrid_decode(params, x, cache, lengths, cfg, lengths[:, None])
     elif cfg.ssm is not None:
         x = _ssm_decode(params, x, cache, cfg, range(cfg.n_layers))
+    elif cfg.attn_type == "mla":
+        x = _mla_decode(params, x, cache, lengths, cfg, lengths[:, None])
     else:
-        x = _dense_decode(params, x, cache, lengths, cfg, lengths[:, None])
+        x = _dense_decode(params, x, cache, lengths, cfg, lengths[:, None],
+                          enc_out)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x[:, 0].float() @ _w_out(params, cfg).float()
     return logits, cache
 
 
-def _attn_mlp_decode(p, x, cfg, cache_kv, lengths, positions_t):
+def _attn_mlp_decode(p, x, cfg, cache_kv, lengths, positions_t,
+                     enc_out=None):
     """One pre-norm attention + MLP/MoE layer's step against its KV cache
-    (updated in place)."""
+    (updated in place); whisper's decoder layers add their cross attention
+    between the two: to ``enc_out`` (``_cross_decode``), or without it to
+    the token itself, as the reference does."""
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     a, _ = _decode_gqa(p["attn"], h, cfg, cache_kv, lengths,
                        positions_t=positions_t)
     y = x + a
+    if cfg.enc_dec:
+        h = L.rms_norm(y, p["cross_norm"], cfg.norm_eps)
+        y = y + (L.gqa_apply(p["cross"], h, cfg, positions=positions_t,
+                             use_rope=False, eps=cfg.norm_eps)
+                 if enc_out is None else _cross_decode(p, h, cfg, enc_out))
     h = L.rms_norm(y, p["mlp_norm"], cfg.norm_eps)
     return y + _ffn(p, h, cfg)
 
 
-def _dense_decode(params, x, cache, lengths, cfg, positions_t):
+def _cross_decode(p, h, cfg, enc_out):
+    """Cross attention of one token to the whole encoder output, its K/V
+    recomputed from ``enc_out`` (K6 at S=1 over S_enc on the card)."""
+    return L.gqa_apply(
+        p["cross"], h, cfg,
+        positions=torch.zeros(h.shape[0], 1, dtype=torch.int32,
+                              device=h.device),
+        kv_source=enc_out, use_rope=False, eps=cfg.norm_eps)
+
+
+def _mla_decode(params, x, cache, lengths, cfg, positions_t):
+    """minicpm3's MLA stack, one layer at a time: each layer writes its
+    latent and rotary-key rows at ``lengths`` in place and attends in
+    latent space (``layers.mla_apply``, plain torch), then its MLP."""
+    c_lat, c_kr = cache["mla"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        a, _ = L.mla_apply(lp["attn"], h, cfg, positions=positions_t,
+                           kv_cache=(c_lat[i], c_kr[i]), cache_len=lengths,
+                           eps=cfg.norm_eps)
+        y = x + a
+        h = L.rms_norm(y, lp["mlp_norm"], cfg.norm_eps)
+        x = y + _ffn(lp, h, cfg)
+    return x
+
+
+def _dense_decode(params, x, cache, lengths, cfg, positions_t, enc_out=None):
     """The attention stack, one layer at a time: the uniform ``"kv"``
-    cache, or gemma3's interleaved local layers (each on its ring) and
-    global layers."""
+    cache (whisper's decoder with its cross attention), or gemma3's
+    interleaved local layers (each on its ring) and global layers."""
     if "kv" in cache:
         caches = [(cache["kv"], i) for i in range(cfg.n_layers)]
     else:
@@ -399,7 +517,7 @@ def _dense_decode(params, x, cache, lengths, cfg, positions_t):
             n_local += bool(window)
     for i, ((ck, cv), j) in enumerate(caches):
         x = _attn_mlp_decode(layer_params(params["layers"], i), x, cfg,
-                             (ck[j], cv[j]), lengths, positions_t)
+                             (ck[j], cv[j]), lengths, positions_t, enc_out)
     return x
 
 

@@ -128,6 +128,58 @@ def test_flash_mha_window_matches_reference(s, window, block, causal):
     assert not np.allclose(got.numpy(), full.numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("dk,dv,causal,window", [
+    (96, 64, True, 0), (96, 64, False, 0), (32, 64, True, 0),
+    (64, 32, True, 7),
+])
+def test_flash_value_head_dim_matches_reference(dk, dv, causal, window):
+    """K6's plain version with V's head dim of its own (minicpm3's MLA
+    prefill: q and k 96 = 64 + 32 rotary, v 64; and the other way round)
+    against the reference's ``flash_mha``, whose loop sizes its
+    accumulator from V (the Pallas kernel cannot take it): output
+    ``(B, S, H, Dv)`` at scale ``dk**-0.5``."""
+    b, s, h, hk = 2, 48, 4, 4
+    q, k, v = (_normal(60, b, s, h, dk), _normal(61, b, s, hk, dk),
+               _normal(62, b, s, hk, dv))
+    want = ref_flash.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, window=window, q_block=16,
+                               kv_block=16)
+    before = kernel.flash_attention.launches
+    got = flash.flash_mha(_t(q), _t(k), _t(v), causal=causal, window=window,
+                          q_block=16, kv_block=16)
+    assert kernel.flash_attention.launches == before  # the CPU launches none
+    assert got.shape == (b, s, h, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    # the reference's attention_ref reshapes to q's head dim; the port's
+    # oracle takes V's
+    np.testing.assert_allclose(
+        flash.attention_ref(_t(q), _t(k), _t(v), causal=causal,
+                            window=window).numpy(),
+        np.asarray(want), atol=ATOL)
+
+
+def test_only_k6_in_the_model_layout_takes_its_own_value_dim():
+    """q and k must share a head dim everywhere; V may differ only for
+    ``flash_attention_gqa`` (K6 in the model's layout): the reference's
+    ``(BH, S, d)`` signature and K7 keep one head dim."""
+    got = ops.flash_attention_gqa(torch.zeros(1, 4, 2, 8),
+                                  torch.zeros(1, 4, 2, 8),
+                                  torch.zeros(1, 4, 2, 5))
+    assert got.shape == (1, 4, 2, 5)
+    with pytest.raises(ValueError, match="head dims differ"):
+        ops.flash_attention_gqa(torch.zeros(1, 4, 2, 8),
+                                torch.zeros(1, 4, 2, 6),
+                                torch.zeros(1, 4, 2, 6))
+    with pytest.raises(ValueError, match="head dims differ"):
+        ops.flash_attention(torch.zeros(2, 4, 8), torch.zeros(2, 4, 8),
+                            torch.zeros(2, 4, 5))
+    with pytest.raises(ValueError, match="caches"):
+        ops.decode_attention_gqa(torch.zeros(2, 2, 8),
+                                 torch.zeros(2, 4, 1, 8),
+                                 torch.zeros(2, 4, 1, 8)[..., :5],
+                                 torch.ones(2), sm_scale=1.0)
+
+
 def test_flash_window_rejects_a_negative_window():
     x = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="window"):

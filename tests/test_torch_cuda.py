@@ -1,10 +1,12 @@
 """Card-only tests of the port: the CUDA kernels (wave steps, hazard
 frontier, forwarding, ELL SpMV, histogram, flash and decode attention,
 selective scan, grouped expert matmul; K6 also with the sliding window in
-every tile and K6/K7 at zamba2's D=112, K7 over a wrapped ring) against
-their plain torch versions, a reduced qwen3-14b's and falcon-mamba-7b's
-prefill and decode step, a reduced zamba2-7b's and gemma3-4b's prefill and
-teacher-forced decode, and a reduced phi3.5-moe's prefill and dropless MoE
+every tile, with a value head dim of its own (MLA) and at S=1 over 1500
+keys (whisper's cross attention), K6/K7 at zamba2's D=112, K7 over a
+wrapped ring) against their plain torch versions, a reduced qwen3-14b's
+and falcon-mamba-7b's prefill and decode step, a reduced zamba2-7b's,
+gemma3-4b's, minicpm3-4b's and whisper-tiny's prefill and teacher-forced
+decode, and a reduced phi3.5-moe's prefill and dropless MoE
 layer on the card against the CPU, the main path on the card against the oracle (a speculative
 and a streaming program included), the substrate ops, and the DU-kernel
 cross-checks of a WavePlan on the card.
@@ -863,11 +865,11 @@ def _flash_raw(cuda, q, k, v, causal, window, sms):
     """K6 through the raw launcher with the SM count ``sms``, which picks
     the tile up to D=128 (1: 8 warps of 16 rows; 10**6: 4 warps)."""
     b, s, h, d = q.shape
-    s_kv, hk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    s_kv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty((b, s, h, dv))
     rc = attn._lib().flash_attention_launch(
         0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-        s_kv, h, hk, d, int(causal), window, d ** -0.5, sms,
+        s_kv, h, hk, d, dv, int(causal), window, d ** -0.5, sms,
         torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
@@ -941,6 +943,100 @@ def test_flash_zamba2_shared_block_prefill_shape(cuda):
     want = flash_gqa_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+# (q and k, v) head dims: minicpm3's MLA prefill (96 = 64 + 32 rotary, 64),
+# and V narrower, wider, and past the 8-warp tile's 128
+FLASH_DV = [(96, 64), (64, 32), (192, 128), (32, 64)]
+
+
+@pytest.mark.parametrize("dk,dv", FLASH_DV)
+@pytest.mark.parametrize("mode", ["causal", "noncausal", "window"])
+def test_flash_value_head_dim(cuda, dk, dv, mode):
+    """K6 with V's head dim of its own against the plain version at a
+    ragged S=300 (4 query heads over 2): causal, non-causal and with a
+    window of 16, in each tile the larger dim allows (8 and 4 warps up to
+    128, forced by the SM count; the 256 template's one tile for 192/128),
+    and through the wrapper, whose output is ``(B, S, H, dv)``."""
+    b, s, h, hk = 2, 300, 4, 2
+    causal, window = mode != "noncausal", 16 if mode == "window" else 0
+    q = _randn(120, b, s, h, dk, device=cuda)
+    k = _randn(121, b, s, hk, dk, device=cuda)
+    v = _randn(122, b, s, hk, dv, device=cuda)
+    want = flash_gqa_ref(q, k, v, causal=causal, window=window)
+    assert want.shape == (b, s, h, dv)
+    for sms in ((1, 10**6) if max(dk, dv) <= 128 else (132,)):
+        out = _flash_raw(cuda, q, k, v, causal, window, sms)
+        assert (out - want).abs().max().item() <= ATTN_TOL[torch.float32]
+    before = attn.flash_attention.launches
+    got = attn.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 1
+    assert got.shape == (b, s, h, dv)
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (96, 64)])
+@pytest.mark.parametrize("s,s_kv", [(1, 1500), (128, 1500), (1, 1),
+                                    (77, 200)])
+def test_flash_value_head_dim_ragged_lengths(cuda, dk, dv, s, s_kv):
+    """Ragged lengths at whisper's heads (6 over 6): one query over 1500
+    keys (the cross attention of a decode step), 128 over 1500 (the
+    prefill's), one over itself (the serving quirk, causal), and 77 over
+    200; at dk = dv = 64 and at MLA's 96/64."""
+    b, h = 4, 6
+    causal = s == s_kv
+    q = _randn(123, b, s, h, dk, device=cuda)
+    k = _randn(124, b, s_kv, h, dk, device=cuda)
+    v = _randn(125, b, s_kv, h, dv, device=cuda)
+    got = attn.flash_attention_gqa(q, k, v, causal=causal)
+    want = flash_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", FLASH_DV)
+def test_flash_value_head_dim_half_types(cuda, dtype, dk, dv):
+    q = _randn(126, 2, 150, 4, dk, device=cuda, dtype=dtype)
+    k = _randn(127, 2, 150, 1, dk, device=cuda, dtype=dtype)
+    v = _randn(128, 2, 150, 1, dv, device=cuda, dtype=dtype)
+    got = attn.flash_attention_gqa(q, k, v, causal=True)
+    want = flash_gqa_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2, 150, 4, dv)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dk,dv", [(96, 70), (70, 96)])
+def test_flash_value_head_dim_unaligned(cuda, dk, dv):
+    """A head dim that is not a multiple of 4 takes converted loads in
+    place of the 16-byte copies, for K and V alike."""
+    q = _randn(129, 1, 200, 4, dk, device=cuda)
+    k = _randn(130, 1, 200, 2, dk, device=cuda)
+    v = _randn(131, 1, 200, 2, dv, device=cuda)
+    got = attn.flash_attention_gqa(q, k, v, causal=True)
+    want = flash_gqa_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("d,causal", [(64, True), (128, False), (96, True)])
+def test_flash_value_columns_split_bit_for_bit(cuda, d, causal):
+    """The weights come from q and k alone and each output n-tile from
+    them and its own V columns, so K6 over V's first half of columns gives
+    the bits of the same columns of K6 over all of V (dv = dk), on both
+    tiles: a value head dim of its own changes the output's width and
+    nothing else."""
+    b, s, h, hk = 2, 300, 4, 2
+    q = _randn(132, b, s, h, d, device=cuda)
+    k = _randn(133, b, s, hk, d, device=cuda)
+    v = _randn(134, b, s, hk, d, device=cuda)
+    half = v[..., :d // 2].contiguous()
+    for sms in (1, 10**6):
+        whole = _flash_raw(cuda, q, k, v, causal, 0, sms)
+        part = _flash_raw(cuda, q, k, half, causal, 0, sms)
+        assert torch.equal(part, whole[..., :d // 2])
 
 
 @pytest.mark.parametrize("lengths", [[1, 60, 160, 161], [0, 7, 100, 300]])
@@ -1054,6 +1150,54 @@ def test_reduced_hybrid_and_windowed_on_card_match_the_cpu(cuda, name, depth,
                                       lens)]
         lens = [n + 1 for n in lens]
     assert attn.decode_attention.launches - n7 == attn_layers * s
+    assert torch.allclose(outs[0].cpu(), outs[1], atol=2e-3, rtol=1e-3)
+    assert torch.allclose(outs[1], want, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("name,depth", [
+    ("minicpm3-4b", {}), ("minicpm3-4b", {"v_head_dim": 24}),
+    ("whisper-tiny", {}),
+])
+def test_reduced_mla_and_whisper_on_card_match_the_cpu(cuda, name, depth):
+    """A reduced minicpm3-4b (also with V 24 wide against q and k's 16)
+    and whisper-tiny on the card against the CPU: the prefill (K6 once an
+    MLA layer; whisper's once an encoder layer and twice a decoder layer,
+    self and cross) and 12 teacher-forced decode steps (MLA: no kernel;
+    whisper with its encoder output: K7 and K6 once a layer a step), at the
+    reference's decode tolerance."""
+    cfg = dataclasses.replace(configs.get(name).reduced(), **depth)
+    n = cfg.n_layers
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                        device="cpu")
+    card = convert.from_reference(convert.to_numpy(cpu), device=cuda)
+    s = 12
+    tok = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab, (2, s)))
+    fe = (torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, cfg.frontend_len, cfg.d_model)).astype(np.float32)) * 0.02
+          if cfg.enc_dec else None)
+    n6 = attn.flash_attention.launches
+    got, _ = T.prefill(card, tok.to(cuda), cfg, L.FP32,
+                       frontend=None if fe is None else fe.to(cuda))
+    want, _ = T.prefill(cpu, tok, cfg, L.FP32, frontend=fe)
+    assert attn.flash_attention.launches - n6 == (
+        cfg.n_enc_layers + 2 * n if cfg.enc_dec else n)
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+    encs = ((T._encode(card, fe.to(cuda), cfg), T._encode(cpu, fe, cfg))
+            if cfg.enc_dec else (None, None))
+    caches = [T.init_cache(cfg, 2, s + 1, L.FP32, device=d)
+              for d in (cuda, "cpu")]
+    lens = [torch.zeros(2, dtype=torch.int32, device=d) for d in (cuda, "cpu")]
+    n6, n7 = attn.flash_attention.launches, attn.decode_attention.launches
+    for t in range(s):
+        outs = [T.decode_step(p, tok[:, t:t + 1].to(d), c, m, cfg, L.FP32,
+                              enc_out=e)[0]
+                for p, d, c, m, e in zip((card, cpu), (cuda, "cpu"), caches,
+                                         lens, encs)]
+        lens = [m + 1 for m in lens]
+    per_step = n if cfg.enc_dec else 0
+    assert attn.decode_attention.launches - n7 == per_step * s
+    assert attn.flash_attention.launches - n6 == per_step * s
     assert torch.allclose(outs[0].cpu(), outs[1], atol=2e-3, rtol=1e-3)
     assert torch.allclose(outs[1], want, atol=2e-3, rtol=1e-3)
 

@@ -6,7 +6,7 @@ tree.
 
 Run from the repository root on a machine with a CUDA card::
 
-    python3 time_attention.py [--src DIR] [--label NAME] [--kernels K1,K3,K6,K7,K8,K9]
+    python3 time_attention.py [--src DIR] [--label NAME] [--kernels K1,K3,K6,K6bits,K7,K8,K9]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two commits can be timed side by
@@ -31,7 +31,12 @@ the host's microseconds a call), on the same shapes and seeds:
 - K8 at falcon-mamba-7b's widths (di=8192, n=16): the SSM path's
   prefill, B=4, S=128, and the kernel phase's B=4, S=4096;
 - K9 at phi3.5-moe's prefill (T_pad=3072, block_t=128): w_in (4096 ->
-  6400) and w_out (6400 -> 4096).
+  6400) and w_out (6400 -> 4096);
+- ``K6bits``: no timing, the SHA-256 of K6's float32 output bytes at one
+  head dim for q, k and v (``K6_DIGEST_CASES``: qwen3's serve prefill,
+  zamba2's D=112, gemma3's D=256 with its window, whisper's encoder and
+  one query over 1500 keys), so that two trees run on one card can be
+  shown to give the same bits.
 
 ``--kernels`` names the kernels to time (default ``K6,K7``). Each case
 is also held against its plain version (``ATTN_ATOL``, ``SCAN_ATOL``,
@@ -44,6 +49,7 @@ Prints one JSON line, with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -55,6 +61,31 @@ import chip_smoke as cs
 
 def _k6_cases():
     return [("serve", cs.SERVE_B, cs.SERVE_P), ("kernel", cs.K6_B, cs.K6_S)]
+
+
+# (name, B, S, S_kv, H, Hk, D, causal, window), one head dim for q, k, v
+K6_DIGEST_CASES = [
+    ("qwen3 serve prefill", 4, 128, 128, 40, 8, 128, True, 0),
+    ("zamba2 serve prefill", 4, 128, 128, 32, 32, 112, True, 0),
+    ("gemma3 ring prefill", 2, 1088, 1088, 8, 4, 256, True, 1024),
+    ("whisper encoder", 4, 1500, 1500, 6, 6, 64, False, 0),
+    ("whisper cross decode", 4, 1, 1500, 6, 6, 64, False, 0),
+]
+
+
+def k6_digests(kernel) -> dict:
+    """SHA-256 (first 16 hex digits) of K6's output bytes at
+    ``K6_DIGEST_CASES``, inputs from seed 16."""
+    out = {}
+    for name, b, s, s_kv, h, hk, d, causal, window in K6_DIGEST_CASES:
+        g = torch.Generator(device="cuda").manual_seed(16)
+        q = cs._randn(g, b, s, h, d)
+        k, v = (cs._randn(g, b, s_kv, hk, d) for _ in "kv")
+        got = kernel.flash_attention_gqa(q, k, v, causal=causal,
+                                         window=window)
+        out[name] = hashlib.sha256(
+            got.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
 
 
 def time_k1() -> dict:
@@ -103,11 +134,13 @@ def _k6_tiles(kernel, q, k, v, want, bound) -> dict:
     tiles = {}
     fn = kernel._lib().flash_attention_launch
     window = [0] if len(fn.argtypes) > 15 else []  # trees with K6's window
+    dv = [d] if len(fn.argtypes) > 16 else []  # and with V's own head dim
     for warps, sms in (("8_warps", 1), ("4_warps", 10**6)):
         def call(sms=sms):
             rc = kernel.device.launch(
                 q.device, fn, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b, s, s, h, hk, d, 1, *window, d ** -0.5, sms)
+                out.data_ptr(), b, s, s, h, hk, d, *dv, 1, *window,
+                d ** -0.5, sms)
             if rc:
                 raise RuntimeError(f"K6 launch failed: {rc}")
         call()
@@ -195,10 +228,10 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(cs.ROOT, "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--kernels", default="K6,K7",
-                    help="comma-separated subset of K1,K3,K6,K7,K8,K9")
+                    help="comma-separated subset of K1,K3,K6,K6bits,K7,K8,K9")
     a = ap.parse_args(argv)
     wanted = a.kernels.split(",")
-    if not set(wanted) <= {"K1", "K3", "K6", "K7", "K8", "K9"}:
+    if not set(wanted) <= {"K1", "K3", "K6", "K6bits", "K7", "K8", "K9"}:
         ap.error(f"--kernels: unknown kernels in {a.kernels}")
     if not torch.cuda.is_available():
         print("time_attention: no CUDA device", file=sys.stderr)
@@ -216,6 +249,7 @@ def main(argv=None) -> int:
         "K1": time_k1,
         "K3": time_k3,
         "K6": lambda: time_k6(kernel, flash_gqa_ref),
+        "K6bits": lambda: k6_digests(kernel),
         "K7": lambda: time_k7(kernel, decode_gqa_ref),
         "K8": lambda: time_k8(k8, selective_scan_ref),
         "K9": lambda: time_k9(k9, group_matmul_ref),
