@@ -58,7 +58,10 @@ failure exits non-zero:
    gives it, q and k 96 wide and v 64 (40 heads over 40, causal, at the
    serve prefill, B=4, S=128, and at B=1, S=4096), and whisper-tiny's (6
    heads of 64, non-causal: the encoder at B=4, S=1500, the prefill's
-   cross attention at S=128 over 1500); all within a stated float32 bound of their
+   cross attention at S=128 over 1500); K6 and K7 at whisper-tiny's
+   decode steps (K6 with one query over 1500 frames, non-causal, and over
+   one key, causal; K7 at the serve step, every frontier 1-160); all
+   within a stated float32 bound of their
    plain versions, at both shapes the whole call timed as K2's (median
    of 7 runs of 20, the card's time alone, the host's per call) beside
    ``scaled_dot_product_attention`` and the bound; the selective-scan
@@ -1159,6 +1162,58 @@ def check_mla_whisper_attention():
             "library_ms": _time_ms(lib, REPS, TRIALS),
             "library_device_ms": _device_ms(lib, REPS)}
     return out
+
+
+def check_whisper_decode_attention():
+    """K6 and K7 at the shapes whisper-tiny's decode steps give them (6
+    heads over 6, D=64), each within ``ATTN_ATOL`` of its plain version:
+    K6 with one query over the 1500 encoder frames, non-causal (a
+    teacher-forced step's cross attention, ``_cross_decode``) and with one
+    query over one key, causal (a ``serve_batch`` step's cross attention,
+    which is given no encoder output); K7 at the serve step (B=4 over 161
+    positions) at every frontier 1-160. Each K6 call is timed beside its
+    bound."""
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention.ref import decode_gqa_ref, flash_gqa_ref
+
+    h, d, b = WHISPER_H, WHISPER_D, SERVE_B
+    scale = d ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(19)
+    flash = {}
+    for name, s_kv, causal in (
+            ("cross attention at a teacher-forced step", WHISPER_FRAMES,
+             False),
+            ("cross attention at a serve_batch step", 1, True)):
+        q = _randn(g, b, 1, h, d)
+        k, v = (_randn(g, b, s_kv, h, d) for _ in "kv")
+        run = lambda: kernel.flash_attention_gqa(  # noqa: E731
+            q, k, v, causal=causal)
+        got = run()
+        torch.cuda.synchronize()
+        err = _within(got, flash_gqa_ref(q, k, v, causal=causal),
+                      f"K6 at whisper's {name}")
+        bounds = _flash_bounds(b, 1, h, h, d, s_kv=s_kv, causal=causal)
+        flash[name] = {"B": b, "S": 1, "S_kv": s_kv, "H": h, "Hk": h,
+                       "D": d, "causal": causal, "max_abs_err": err,
+                       **bounds, **_call_times(run, bounds["bound_ms"])}
+
+    qd = _randn(g, b, h, d)
+    kc, vc = (_randn(g, b, SERVE_MAX_SEQ, h, d) for _ in "kv")
+    last = SERVE_P + SERVE_NEW
+    err_d = 0.0
+    for t in range(1, last + 1):
+        lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        got_d = kernel.decode_attention_gqa(qd, kc, vc, lens, sm_scale=scale)
+        err_d = max(err_d, _within(
+            got_d, decode_gqa_ref(qd, kc, vc, lens, sm_scale=scale),
+            f"K7 at whisper's serve step, frontier {t}"))
+    return {
+        "flash": {"by_shape": flash,
+                  "max_abs_err": max(c["max_abs_err"]
+                                     for c in flash.values())},
+        "decode": {"B": b, "C": SERVE_MAX_SEQ, "H": h, "Hk": h, "D": d,
+                   "frontiers": [1, last], "max_abs_err": err_d},
+    }
 
 
 def _decode_bound_bytes_ms(b, h, hk, d, committed) -> float:
@@ -2717,6 +2772,9 @@ def main() -> int:
     mlaw = check_mla_whisper_attention()
     print("flash attention, minicpm3's MLA and whisper's shapes:",
           json.dumps(mlaw), flush=True)
+    wdec = check_whisper_decode_attention()
+    print("flash and decode attention, whisper's decode steps:",
+          json.dumps(wdec), flush=True)
     sc = check_scan_kernel()
     print("selective scan kernel:", json.dumps(sc), flush=True)
     gm = check_gmm_kernel()
@@ -2975,6 +3033,7 @@ def main() -> int:
         "max_abs_err": max(fl["max_abs_err"], fw_win["max_abs_err"],
                            zamba["flash"]["max_abs_err"],
                            gemma["flash"]["max_abs_err"],
+                           wdec["flash"]["max_abs_err"],
                            *(c["max_abs_err"] for c in mlaw.values())),
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "device_ms": fl["device_ms"], "host_us": fl["host_us"],
@@ -2994,6 +3053,7 @@ def main() -> int:
         "zamba2_serve_shape": zamba["flash"],
         "gemma3_path_shapes": gemma["flash"],
         "mla_and_whisper_shapes": mlaw,
+        "whisper_decode_shapes": wdec["flash"],
     }
     decode_entry = {
         "name": "decode_attention", "route": "cuda",
@@ -3017,7 +3077,8 @@ def main() -> int:
                      "version (float32; the sum order differs)",
         "max_abs_err": max(de["max_abs_err"],
                            zamba["decode"]["max_abs_err"],
-                           gemma["decode"]["max_abs_err"]),
+                           gemma["decode"]["max_abs_err"],
+                           wdec["decode"]["max_abs_err"]),
         "ms": de["ms"], "plain_ms": de["plain_ms"],
         "device_ms": de["device_ms"], "host_us": de["host_us"],
         "bound_ms": de["bound_ms"], "bound_by": "bytes",
@@ -3033,6 +3094,7 @@ def main() -> int:
         "serve_shape": de["serve_shape"],
         "zamba2_serve_shape": zamba["decode"],
         "gemma3_path_shapes": gemma["decode"],
+        "whisper_serve_shape": wdec["decode"],
     }
     scan_entry = {
         "name": "ssm_scan", "route": "cuda",

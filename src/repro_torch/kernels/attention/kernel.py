@@ -115,15 +115,13 @@ def _raise_on(rc, what):
                            + _lib().attention_error_string(rc).decode())
 
 
-def _check_heads(what, h, hk, d, dk, dv, *, own_dv=False):
-    """Query heads group over kv heads; q and k share a head dim, and so
-    does v unless ``own_dv`` (K6 in the model's layout)."""
+def _check_heads(what, h, hk, d, dk):
+    """Query heads group over kv heads, and q and k share a head dim."""
     if hk < 1 or h % hk:
         raise ValueError(f"{what}: {h} query heads do not group over {hk} "
                          f"kv heads")
-    if d != dk or (dv != d and not own_dv):
-        raise ValueError(f"{what}: q, k and v head dims differ ({d}, {dk}, "
-                         f"{dv})")
+    if d != dk:
+        raise ValueError(f"{what}: q and k head dims differ ({d}, {dk})")
 
 
 def _launch_flash(q, k, v, causal, window, sm_scale):
@@ -237,7 +235,10 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
             and k.shape[1] == v.shape[1]):
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} disagree")
-    _check_heads("flash_attention", 1, 1, q.shape[2], k.shape[2], v.shape[2])
+    _check_heads("flash_attention", 1, 1, q.shape[2], k.shape[2])
+    if v.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: q and v head dims differ "
+                         f"({q.shape[2]}, {v.shape[2]})")
     if _device("flash_attention", q, k, v).type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     return _launch_flash(q[:, :, None], k[:, :, None], v[:, :, None],
@@ -265,7 +266,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
     if q.shape[0] != k.shape[0]:
         raise ValueError("flash_attention_gqa: batch sizes differ")
     _check_heads("flash_attention_gqa", q.shape[2], k.shape[2], q.shape[3],
-                 k.shape[3], v.shape[3], own_dv=True)
+                 k.shape[3])
     if _device("flash_attention_gqa", q, k, v).type == "cpu":
         return flash_gqa_ref(q, k, v, causal=causal, window=int(window),
                              q_block=q_block, kv_block=kv_block)
@@ -283,8 +284,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float = 1.0,
     if not (q.shape[0] == k_cache.shape[0] == lengths.shape[0]
             and k_cache.shape == v_cache.shape):
         raise ValueError("decode_attention: shapes disagree")
-    _check_heads("decode_attention", 1, 1, q.shape[2], k_cache.shape[2],
-                 v_cache.shape[2])
+    _check_heads("decode_attention", 1, 1, q.shape[2], k_cache.shape[2])
     if _device("decode_attention", q, k_cache, v_cache, lengths).type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths,
                                     sm_scale=sm_scale)
@@ -306,7 +306,7 @@ def decode_attention_gqa(q, k_cache, v_cache, lengths, *, sm_scale: float):
     if not q.shape[0] == k_cache.shape[0] == lengths.shape[0]:
         raise ValueError("decode_attention_gqa: batch sizes differ")
     _check_heads("decode_attention_gqa", q.shape[1], k_cache.shape[2],
-                 q.shape[2], k_cache.shape[3], v_cache.shape[3])
+                 q.shape[2], k_cache.shape[3])
     if _device("decode_attention_gqa", q, k_cache, v_cache,
                lengths).type == "cpu":
         return decode_gqa_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale)

@@ -42,7 +42,7 @@ the host's microseconds a call), on the same shapes and seeds:
 is also held against its plain version (``ATTN_ATOL``, ``SCAN_ATOL``,
 ``_gmm_err``'s bounds). Where the tree's K6 launcher picks its tile from
 the SM count (``kernel.sm_count``), the serve prefill is timed under
-both tiles too, by passing the launcher an SM count that forces each.
+both tiles too, with the SM count replaced by one that forces each.
 Prints one JSON line, with the card's name and power limit.
 """
 
@@ -125,29 +125,22 @@ def time_k6(kernel, flash_gqa_ref) -> dict:
 
 
 def _k6_tiles(kernel, q, k, v, want, bound) -> dict:
-    """The serve prefill through the raw launcher under each tile: an SM
-    count of 1 makes any grid fill the card (8 warps of 16 rows), one of
-    10**6 none (4 warps)."""
-    b, s, h, d = q.shape
-    hk = k.shape[2]
-    out = torch.empty_like(q)
+    """The serve prefill under each tile, the launcher's SM count replaced
+    for the call: an SM count of 1 makes any grid fill the card (8 warps
+    of 16 rows), one of 10**6 none (4 warps)."""
     tiles = {}
-    fn = kernel._lib().flash_attention_launch
-    window = [0] if len(fn.argtypes) > 15 else []  # trees with K6's window
-    dv = [d] if len(fn.argtypes) > 16 else []  # and with V's own head dim
-    for warps, sms in (("8_warps", 1), ("4_warps", 10**6)):
-        def call(sms=sms):
-            rc = kernel.device.launch(
-                q.device, fn, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b, s, s, h, hk, d, *dv, 1, *window,
-                d ** -0.5, sms)
-            if rc:
-                raise RuntimeError(f"K6 launch failed: {rc}")
-        call()
-        torch.cuda.synchronize()
-        tiles[warps] = {
-            "max_abs_err": cs._within(out, want, f"K6 {warps}"),
-            **cs._call_times(call, bound)}
+    sm_count = kernel.sm_count
+    try:
+        for warps, sms in (("8_warps", 1), ("4_warps", 10**6)):
+            kernel.sm_count = lambda index, sms=sms: sms
+            call = lambda: kernel.flash_attention_gqa(q, k, v)  # noqa: E731
+            out = call()
+            torch.cuda.synchronize()
+            tiles[warps] = {
+                "max_abs_err": cs._within(out, want, f"K6 {warps}"),
+                **cs._call_times(call, bound)}
+    finally:
+        kernel.sm_count = sm_count
     return tiles
 
 
