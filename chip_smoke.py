@@ -76,7 +76,14 @@ failure exits non-zero:
    6400 -> 4096) and at block_t=16, within the float32 dot-product
    bound and a tighter TF32 limit that one TF32 pass misses, both
    projections timed as K2's beside the 3xTF32 operations
-   bound and one cuBLAS product of equal FLOPs;
+   bound and one cuBLAS product of equal FLOPs; for training, K6 with
+   its rows' log-sum-exp at qwen3-14b's heads (B=4, S=1024), gemma3-4b's
+   window (S=2048) and minicpm3-4b's 96/64 (its output the same bits
+   as without, the lse and ``flash_mha``'s gradients within 1e-4 of the
+   plain loop's and of autograd through ``attention_ref``), and K8's
+   gradients (``selective_scan``'s Function) at falcon-mamba-7b's width
+   (B=1, S=128) within 1e-5 + 1e-4·|plain| of autograd through the plain
+   scan;
 4. main path — the nine Table-1 programs at ``--scale-mult 8`` through
    ``executor.execute(..., backend="torch")`` on the card, each final
    array bit-identical to the port's sequential oracle, plus one
@@ -178,7 +185,18 @@ failure exits non-zero:
     steps (the cross layer attends each token to itself; 512 K7, 512 K6)
     whose argmax ``serve_batch``'s first tokens must equal (640 K7, 640
     K6);
-12. the script's seconds, the card line, the ``{"kernels": [...]}`` line, and last
+12. the training path — ``launch/train``'s loop (``train.run``, the
+    record behind ``train.main``) on qwen3-14b at full width **cut to 4
+    of its 40 layers** (46 GB of parameters, gradients and AdamW moments
+    in float32), 5 steps of 4 x 1024 tokens with no checkpoint written:
+    every loss finite, the first within 3 of ln(151936), no recovery, 8
+    K6 launches a step (4 forward, 4 in the recomputed backward) and no
+    other kernel; the first step again with ``attention_ref`` in K6's
+    place (loss within 1e-5, gradient norm within 1e-4, relative); step
+    seconds (the median of steps 2-5), tokens/s, peak GB and the share
+    of the 8·N·T float32 bound; then a reduced qwen3-14b's 10 straight
+    steps against 5 + resume + 5 at rtol 1e-4;
+13. the script's seconds, the card line, the ``{"kernels": [...]}`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where no CUDA device is present, and
@@ -358,6 +376,31 @@ K9_BLOCK_T, K9_SMALL_BT = 128, 16
 # different orders (errors ~1e-6 on outputs of size ~1); 1e-4 is the
 # reference's own bound for its dropless FFN against a dense oracle
 MOE_ATOL, MOE_RTOL = 1e-4, 1e-4
+# the training path: qwen3-14b at full width cut to 4 of its 40 layers
+# (0.330 B parameters a layer, 1.556 B in the embedding and the untied
+# head: 2.877 B, at 16 bytes a parameter in float32 for the parameters,
+# their gradients and AdamW's two moments about 46.0 GB; 6 layers would
+# be 56.6 GB before the activations, all 40 about 235 GB), 4 sequences of
+# 1024 tokens, 5 steps, no checkpoint written (the state is 46 GB)
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = (
+    "qwen3-14b", 4, 4, 1024, 5)
+# the first step with K6 against the same step with attention_ref on the
+# card: the loss is one float32 mean over 4096 tokens and the norm a sum
+# over 2.9 B squares; K6 differs from the plain softmax by ~1e-6 a row
+# (3xTF32), so each moves by far less than these bounds
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+# 10 straight steps against 5 + resume + 5 on the card: the reference's
+# tolerance (tests/test_system.py); the embedding's backward sums with
+# atomics on the card, so the two runs agree to rounding, not bit for bit
+RESUME_RTOL = 1e-4
+# K6's lse and flash_mha's gradients at the training shapes: qwen3's heads
+# at the path's B=4, S=1024; gemma3's window at S=2048; minicpm3's 96/64
+K6T_WINDOW_S, K6T_MLA_S = 2048, 1024
+# K8's gradients at falcon-mamba-7b's width, one sequence of 128; the
+# backward recomputes through the plain scan, so its gradients differ from
+# autograd of the plain scan only where the chunks split the sums
+K8G_B, K8G_S = 1, 128
+SCAN_GRAD_ATOL, SCAN_GRAD_RTOL = 1e-5, 1e-4
 
 
 def _smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -1172,7 +1215,9 @@ def check_whisper_decode_attention():
     query over one key, causal (a ``serve_batch`` step's cross attention,
     which is given no encoder output); K7 at the serve step (B=4 over 161
     positions) at every frontier 1-160. Each K6 call is timed beside its
-    bound."""
+    bound, its plain version and ``scaled_dot_product_attention`` (a
+    yardstick the port never calls)."""
+    import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel
     from repro_torch.kernels.attention.ref import decode_gqa_ref, flash_gqa_ref
 
@@ -1193,9 +1238,16 @@ def check_whisper_decode_attention():
         err = _within(got, flash_gqa_ref(q, k, v, causal=causal),
                       f"K6 at whisper's {name}")
         bounds = _flash_bounds(b, 1, h, h, d, s_kv=s_kv, causal=causal)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal)
         flash[name] = {"B": b, "S": 1, "S_kv": s_kv, "H": h, "Hk": h,
                        "D": d, "causal": causal, "max_abs_err": err,
-                       **bounds, **_call_times(run, bounds["bound_ms"])}
+                       **bounds, **_call_times(run, bounds["bound_ms"]),
+                       "plain_ms": _time_ms(lambda: flash_gqa_ref(
+                           q, k, v, causal=causal), 3),
+                       "library_ms": _time_ms(lib, REPS, TRIALS),
+                       "library_device_ms": _device_ms(lib, REPS)}
 
     qd = _randn(g, b, h, d)
     kc, vc = (_randn(g, b, SERVE_MAX_SEQ, h, d) for _ in "kv")
@@ -1398,6 +1450,116 @@ def check_scan_kernel():
         "plain_ms": _time_ms(lambda: selective_scan_ref(*full), 2),
     })
     return out
+
+
+def check_training_kernels():
+    """The kernels on the training path, each against its plain version on
+    the card. K6 with ``return_lse`` at qwen3-14b's heads (B=4, S=1024,
+    causal, the training path's shape), gemma3-4b's window (8/4 heads of
+    256, window 1024, S=2048) and minicpm3-4b's MLA (40/40, q and k 96, v
+    64, S=1024): its output the same bits as without the lse, the lse
+    within ``ATTN_ATOL`` of the plain loop's, and ``flash_mha``'s
+    gradients (q, k, v; the autograd Function: K6 forward, the blockwise
+    recompute backward) within ``ATTN_ATOL`` of autograd through
+    ``attention_ref``; K6 with the lse timed as a whole call beside its
+    bound, without it, the plain loop (with its lse) and the backward.
+    K8 at falcon-mamba-7b's width (B=1, S=128, di=8192, n=16):
+    ``selective_scan``'s gradients (xi, dt, B, C, a_neg; K8 forward, the
+    chunked plain recompute backward) within ``SCAN_GRAD_ATOL +
+    SCAN_GRAD_RTOL·|plain|`` of autograd through ``selective_scan_ref``,
+    the backward timed."""
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention.ref import flash_gqa_ref
+    from repro_torch.kernels.ssm_scan import kernel as k8
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+    from repro_torch.models import flash
+
+    cases = [
+        ("qwen3 at the training shape", TRAIN_B, TRAIN_S, K6_H, K6_HK, K6_D,
+         K6_D, 0),
+        ("gemma3's window", 1, K6T_WINDOW_S, K6W_H, K6W_HK, K6W_D, K6W_D,
+         K6W_WINDOW),
+        ("minicpm3's MLA", 1, K6T_MLA_S, MLA_H, MLA_H, MLA_DK, MLA_DV, 0),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for name, b, s, h, hk, dk, dv, window in cases:
+        q = _randn(g, b, s, h, dk)
+        k, v = _randn(g, b, s, hk, dk), _randn(g, b, s, hk, dv)
+        do = _randn(g, b, s, h, dv)
+        with_lse = lambda: kernel.flash_attention_gqa(  # noqa: E731
+            q, k, v, window=window, return_lse=True)
+        o, lse = with_lse()
+        o_plain = kernel.flash_attention_gqa(q, k, v, window=window)
+        o_ref, lse_ref = flash_gqa_ref(q, k, v, window=window,
+                                       return_lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_plain):
+            raise AssertionError(f"K6 at {name}: the output's bits change "
+                                 f"when the lse is written")
+        lse_err = _within(lse, lse_ref, f"K6's lse at {name}")
+        out_err = _within(o, o_ref, f"K6 at {name}")
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fn(*leaves, window=window), leaves,
+                                       do)
+
+        got = grads(flash.flash_mha)
+        want = grads(flash.attention_ref)
+        torch.cuda.synchronize()
+        grad_err = max(_within(a, w, f"flash_mha's d{n} at {name}")
+                       for n, a, w in zip("qkv", got, want))
+        del got, want
+        bounds = _flash_bounds(b, s, h, hk, dk, window, dv=dv)
+        out[name] = {
+            "B": b, "S": s, "H": h, "Hk": hk, "Dk": dk, "Dv": dv,
+            "causal": True, "window": window, "lse_max_abs_err": lse_err,
+            "max_abs_err": out_err, "grad_max_abs_err": grad_err,
+            "output_bits_equal_without_lse": True, **bounds,
+            **_call_times(with_lse, bounds["bound_ms"]),
+            "without_lse_ms": _time_ms(
+                lambda: kernel.flash_attention_gqa(q, k, v, window=window),
+                REPS, TRIALS),
+            "plain_ms": _time_ms(lambda: flash_gqa_ref(
+                q, k, v, window=window, return_lse=True), 3),
+            "backward_ms": _time_ms(lambda: flash.flash_bwd(
+                q, k, v, o, lse, do, True, window), 3)}
+        del q, k, v, do, o, lse, o_plain, o_ref, lse_ref
+        torch.cuda.empty_cache()
+
+    args = scan_inputs(41, K8G_B, K8G_S, K8_DI, K8_N)[:5]
+    gy, gh = _randn(g, K8G_B, K8G_S, K8_DI), _randn(g, K8G_B, K8_DI, K8_N)
+
+    def scan_grads(fn):
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, h = fn(*leaves)
+        return torch.autograd.grad((y, h), leaves, (gy, gh))
+
+    got = scan_grads(k8.selective_scan)
+    want = scan_grads(selective_scan_ref)
+    torch.cuda.synchronize()
+    scan_err = 0.0
+    for name, a, w in zip(("xi", "dt", "B", "C", "a_neg"), got, want):
+        diff = (a - w).abs()
+        if not bool((diff <= SCAN_GRAD_ATOL + SCAN_GRAD_RTOL
+                     * w.abs()).all()):
+            raise AssertionError(
+                f"selective_scan's d{name}: max abs err {diff.max().item()} "
+                f"above {SCAN_GRAD_ATOL} + {SCAN_GRAD_RTOL}|plain|")
+        scan_err = max(scan_err, float(diff.max().item()))
+    scan = {"B": K8G_B, "S": K8G_S, "di": K8_DI, "n": K8_N,
+            "grad_max_abs_err": scan_err,
+            "tolerance": f"{SCAN_GRAD_ATOL} + {SCAN_GRAD_RTOL}|plain|",
+            "backward_ms": _time_ms(lambda: k8.scan_bwd(*args, None, gy, gh),
+                                    2),
+            "plain_autograd_ms": _time_ms(lambda: scan_grads(
+                selective_scan_ref), 2)}
+    return {"flash": out, "scan": scan,
+            "lse_max_abs_err": max(c["lse_max_abs_err"]
+                                   for c in out.values()),
+            "grad_max_abs_err": max(c["grad_max_abs_err"]
+                                    for c in out.values())}
 
 
 def gmm_inputs(seed, block_t):
@@ -2093,6 +2255,150 @@ def run_ring_check():
     return out
 
 
+def _train_argv(ckpt_dir, *extra):
+    return ["--arch", TRAIN_ARCH, "--ckpt-dir", ckpt_dir, *extra]
+
+
+def first_step_with_attention_ref(cfg):
+    """The training path's first step (the same seeded parameters and
+    first batch as ``train.run``'s) with ``flash_mha`` replaced by the
+    plain ``attention_ref`` on the card: the loss and the gradient's
+    global norm, and the K6 launches it made (none)."""
+    from repro_torch import pytree
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.models import flash, layers as L, transformer as T
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(gen, cfg, L.FP32, device="cuda")
+    batch = next(ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                          global_batch=TRAIN_B)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    leaves = pytree.leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    kernel_path = T.flash_mha
+    T.flash_mha = lambda q, k, v, *, causal=True, window=0, **_: (
+        flash.attention_ref(q, k, v, causal=causal, window=window))
+    before = _launch_counts()["k6"]
+    try:
+        loss = T.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        T.flash_mha = kernel_path
+    by_id = {id(p): g for p, g in zip(leaves, grads)}
+    norm = float(adamw.global_norm(pytree.map_leaves(lambda p: by_id[id(p)],
+                                                     params)))
+    return float(loss.detach()), norm, _launch_counts()["k6"] - before
+
+
+def run_train_path():
+    """The training phase: ``train.run`` (the port's ``train.main`` with
+    its whole record) on qwen3-14b at full width, ``TRAIN_LAYERS`` of its
+    40 layers, ``TRAIN_STEPS`` steps of ``TRAIN_B`` x ``TRAIN_S`` tokens in
+    float32, the K6-K9 counts read around it; every loss finite, the
+    first within 3 of ln(vocab), no recovery, two K6 launches a layer a
+    step (forward and recomputed backward), no other kernel. Then the
+    first step again with ``attention_ref`` in K6's place (its loss within
+    ``TRAIN_LOSS_RTOL``, its gradient norm within ``TRAIN_NORM_RTOL``), and
+    the resume check on a reduced qwen3-14b (10 straight steps against 5 +
+    resume + 5 at ``RESUME_RTOL``). Step seconds are the median of steps
+    2-5, beside the bound 8·N·T / the card's float32 rate (forward,
+    backward and the recomputed forward of the parameters' products)."""
+    import shutil
+
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import train
+
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    run = train.run(_train_argv(
+        os.path.join(ckpt, "full"), "--n-layers", str(TRAIN_LAYERS),
+        "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--steps",
+        str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_STEPS + 1)))
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, losses = run.cfg, run.losses
+    want = {"k6": 2 * TRAIN_LAYERS * TRAIN_STEPS, "k7": 0, "k8": 0, "k9": 0}
+    if launches != want:
+        raise AssertionError(f"training path launched {launches}, expected "
+                             f"{want}")
+    if run.recoveries:
+        raise AssertionError(f"training path: {run.recoveries} recoveries")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training path: losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab)) > 3.0:
+        raise AssertionError(f"training path: first loss {losses[0]} not "
+                             f"within 3 of ln({cfg.vocab})")
+    torch.cuda.empty_cache()
+    ref_loss, ref_norm, ref_k6 = first_step_with_attention_ref(cfg)
+    first = run.metrics[0]
+    loss_rel = abs(first["loss"] - ref_loss) / abs(ref_loss)
+    norm_rel = abs(first["grad_norm"] - ref_norm) / abs(ref_norm)
+    if ref_k6 or loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL:
+        raise AssertionError(
+            f"training path's first step against attention_ref: loss "
+            f"{first['loss']} vs {ref_loss} ({loss_rel}), grad norm "
+            f"{first['grad_norm']} vs {ref_norm} ({norm_rel}), {ref_k6} K6 "
+            f"launches in the plain step")
+    torch.cuda.empty_cache()
+
+    reduced = ["--reduced", "--batch", "2", "--seq", "64", "--ckpt-every",
+               "5"]
+    straight = train.main(_train_argv(os.path.join(ckpt, "a"), *reduced,
+                                      "--steps", "10"))
+    train.main(_train_argv(os.path.join(ckpt, "b"), *reduced, "--steps", "5",
+                           "--total-steps", "10"))
+    resumed = train.main(_train_argv(os.path.join(ckpt, "b"), *reduced,
+                                     "--steps", "10", "--resume"))
+    resume_rel = max(abs(a - b) / abs(a)
+                     for a, b in zip(straight[5:], resumed))
+    if len(resumed) != 5 or resume_rel > RESUME_RTOL:
+        raise AssertionError(f"resume on the card: {straight[5:]} against "
+                             f"{resumed}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    step_s = float(np.median(run.step_seconds[1:]))
+    n_params = cfg.n_params()
+    tokens = TRAIN_B * TRAIN_S
+    flops = 8 * n_params * tokens
+    f32 = _f32_flops_per_s()
+    bound_s = flops / f32
+    return {
+        "arch": cfg.name,
+        "layers": f"{TRAIN_LAYERS} of {configs.get(TRAIN_ARCH).n_layers} "
+                  f"(depth "
+                  f"cut to fit params, grads and AdamW's moments in "
+                  f"float32 on one card)",
+        "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+        "params": n_params, "losses": losses,
+        "first_loss_minus_ln_vocab": losses[0] - math.log(cfg.vocab),
+        "grad_norms": [m["grad_norm"] for m in run.metrics],
+        "recoveries": run.recoveries, "launches": launches,
+        "k6_launches_per_step": launches["k6"] / TRAIN_STEPS,
+        "step_seconds": run.step_seconds,
+        "step_s_median_of_2_to_5": step_s,
+        "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
+        "flop_bound": {"flops": flops, "basis": "8·N·T: forward, backward "
+                       "and the recomputed forward of the parameters' "
+                       "products", "f32_flops_per_s": f32,
+                       "bound_s": bound_s, "share": bound_s / step_s},
+        "first_step_against_attention_ref": {
+            "loss": first["loss"], "ref_loss": ref_loss,
+            "loss_rel_err": loss_rel, "grad_norm": first["grad_norm"],
+            "ref_grad_norm": ref_norm, "grad_norm_rel_err": norm_rel},
+        "resume": {"arch": TRAIN_ARCH + " reduced", "straight": straight,
+                   "resumed": resumed, "max_rel_err": resume_rel},
+        "host_s": host_s, "card": _card_line(),
+    }
+
+
 def sequential_raw_ref(src, val, valid, dst, memory):
     """The producer loop, then the consumer loop, in program order: each
     landed store overwrites its word, the last one winning, and each
@@ -2779,6 +3085,9 @@ def main() -> int:
     print("selective scan kernel:", json.dumps(sc), flush=True)
     gm = check_gmm_kernel()
     print("grouped matmul kernel:", json.dumps(gm), flush=True)
+    trk = check_training_kernels()
+    print("flash attention's lse and gradients, the scan's gradients:",
+          json.dumps(trk), flush=True)
     torch.cuda.empty_cache()
 
     # 4. main path, with the wave kernel's counts read around it alone
@@ -2910,7 +3219,12 @@ def main() -> int:
     encdec = run_lm_path(ENC_DEC_ARCH)
     print("encoder-decoder path:", json.dumps(encdec), flush=True)
 
-    # 12. result lines
+    # 12. the training path: train.main's loop on qwen3-14b at full width,
+    # 4 of its 40 layers, with the K6-K9 counts read around it
+    tr = run_train_path()
+    print("training path:", json.dumps(tr), flush=True)
+
+    # 13. result lines
     big = waves["kernel_phase"]
     wave_entry = {
         "name": "wave_loop", "route": "cuda",
@@ -3026,7 +3340,9 @@ def main() -> int:
                                  for run in ("prefill", "encode",
                                              "teacher_forced",
                                              "teacher_forced_without_enc_out",
-                                             "serve")}},
+                                             "serve")},
+                              "training (forward and recomputed backward)":
+                                  tr["launches"]["k6"]},
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
                      "version (float32 inputs, products in 3xTF32 on the "
                      "tensor cores; the sum order differs)",
@@ -3054,6 +3370,9 @@ def main() -> int:
         "gemma3_path_shapes": gemma["flash"],
         "mla_and_whisper_shapes": mlaw,
         "whisper_decode_shapes": wdec["flash"],
+        "lse_max_abs_err": trk["lse_max_abs_err"],
+        "grad_max_abs_err": trk["grad_max_abs_err"],
+        "training_shapes": trk["flash"],
     }
     decode_entry = {
         "name": "decode_attention", "route": "cuda",
@@ -3115,6 +3434,8 @@ def main() -> int:
         "library": "none: no single torch call runs a selective scan",
         "shape": {"B": K8_B, "S": K8_S, "di": K8_DI, "n": K8_N},
         "cases": {k: sc[k] for k in ("ragged", "carried_h0", "serve_shape")},
+        "grad_max_abs_err": trk["scan"]["grad_max_abs_err"],
+        "gradient": trk["scan"],
     }
     gmm_entry = {
         "name": "group_matmul", "route": "cuda",

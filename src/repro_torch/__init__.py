@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the dynamic-loop-fusion system (``repro``).
 
 The package mirrors the JAX package's layout — ``core/``,
-``analysis/``, ``kernels/``, ``configs/``, ``models/``, ``launch/`` — so each module's counterpart sits at the
-same relative path. It imports ``torch`` and numpy, never ``jax`` and
+``analysis/``, ``kernels/``, ``configs/``, ``models/``, ``launch/``,
+``optim/``, ``data/``, ``checkpoint/``, ``distributed/`` — so each
+module's counterpart sits at the same relative path. It imports ``torch`` and numpy, never ``jax`` and
 nothing of ``repro``: host logic that is numpy in the reference (the
 AGU/CU compiler front-end, the WavePlan builder) is a copy of it here,
 and every Pallas kernel on a ported path is a CUDA kernel written by
@@ -26,7 +27,10 @@ decoders, whose dropless path runs the grouped matmul kernel
 (``kernels/moe_group_mm``), and to Mamba-1 stacks, whose prefill runs the
 selective-scan kernel (``kernels/ssm_scan``); and the HLS tools on the
 host: the linter (``analysis.lint``), the DSE sweep service and its
-calibration (``dse``), and the sweep summaries (``launch.analysis``).
+calibration (``dse``), and the sweep summaries (``launch.analysis``);
+and the training path (``launch.train``: the loss, gradients through
+the flash attention and selective-scan kernels by autograd Functions,
+``optim``, ``data``, ``checkpoint``, ``distributed.fault``).
 Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU, as the tests do.
 """

@@ -5,7 +5,8 @@ asks for the CPU.
 ``device=`` keyword. ``"cuda"`` is the default everywhere and raises
 ``RuntimeError`` when no card is present: nothing switches to the CPU by
 itself. ``"cpu"`` runs the kernels' plain torch versions and is meant for
-tests.
+tests. ``refuse_grad`` is the one guard every kernel wrapper without a
+backward calls before it launches.
 """
 
 from __future__ import annotations
@@ -60,3 +61,21 @@ def sm_count(index: int) -> int:
     """The SM count of CUDA device ``index``, asked once: K6 picks its
     tile and K7 its splits from it."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``RuntimeError`` naming kernel ``what`` when grad mode is on
+    and a tensor off the CPU requires grad: a kernel that launches
+    through ``ctypes`` is invisible to autograd, so its output would carry
+    no ``grad_fn`` and every parameter before it would silently get no
+    gradient. K6 and K8 have autograd Functions (``models.flash.flash_mha``,
+    ``kernels.ssm_scan.selective_scan``); every other wrapper calls this
+    before it launches. CPU tensors go to the plain versions, which
+    autograd sees through."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad and t.device.type != "cpu"
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward, and an input requires "
+            f"grad; run it under torch.no_grad() (training reaches K6 and "
+            f"K8 only, through their autograd Functions)")

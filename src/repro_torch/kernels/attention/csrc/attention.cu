@@ -33,6 +33,10 @@
 // max starts at NEG_INF = -1e30, masked scores are -1e30, the softmax is
 // online in float32 (m, l, alpha = exp(m_old - m_new)), and the output is
 // acc / max(l, 1e-30). Keys past S_kv in a ragged tile get no weight at all.
+// Where the caller asks (training: the reference's custom VJP keeps it as a
+// residual, src/repro/models/flash.py:114), K6 also writes each row's
+// log-sum-exp m + log(max(l, 1e-30)), float32, in (B, H, S) order; the
+// output's arithmetic is the same with or without it.
 //
 // K6 design: both products on the tensor cores in 3xTF32
 // (mma.sync.m16n8k8.tf32). One block per (b * H + h, tile of query rows),
@@ -238,9 +242,10 @@ size_t flash_smem_t(int d, int dv) {
 template <typename T, int DMAX, int WARPS, int KEYS>
 __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int S_kv,
-                 int H, int Hk, int d, int dv, int causal, int window,
-                 float sm_scale, int vec) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int S_kv, int H, int Hk,
+                 int d, int dv, int causal, int window, float sm_scale,
+                 int vec) {
   using F = FlashTile<WARPS, KEYS>;
   constexpr int BQ = F::kBQ, BK = F::kBK, NTH = F::kThreads;
   constexpr int NT = DMAX / 8;  // n-tiles of the output, k-steps of Q.K
@@ -489,7 +494,13 @@ __global__ void __launch_bounds__(FlashTile<WARPS, KEYS>::kThreads)
   for (int hh = 0; hh < 2; ++hh) {
     l_r[hh] += __shfl_xor_sync(~0u, l_r[hh], 1);
     l_r[hh] += __shfl_xor_sync(~0u, l_r[hh], 2);
-    l_r[hh] = 1.f / fmaxf(l_r[hh], 1e-30f);
+    const float l_c = fmaxf(l_r[hh], 1e-30f);
+    // the row's log-sum-exp of its scaled scores (natural log; the
+    // backward's residual), written by the quad's first lane
+    const int i = row0 + 8 * hh;
+    if (lse != nullptr && t4 == 0 && i < S)
+      lse[(long long)blockIdx.x * S + i] = m_r[hh] + logf(l_c);
+    l_r[hh] = 1.f / l_c;
   }
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -782,9 +793,9 @@ size_t decode_smem(int rep, int d, int size) {
 
 template <typename T, int DMAX, int WARPS, int KEYS>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int S_kv, int H, int Hk, int d, int dv,
-                         int causal, int window, float sm_scale,
-                         cudaStream_t stream) {
+                         float* lse, int B, int S, int S_kv, int H, int Hk,
+                         int d, int dv, int causal, int window,
+                         float sm_scale, cudaStream_t stream) {
   using F = FlashTile<WARPS, KEYS>;
   const size_t smem = flash_smem_t<WARPS, KEYS>(d, dv);
   auto kern = flash_kernel<T, DMAX, WARPS, KEYS>;
@@ -795,8 +806,8 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                   ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + F::kBQ - 1) / F::kBQ));
   kern<<<grid, F::kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, S_kv, H, Hk, d, dv,
-      causal, window, sm_scale, vec);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, S_kv, H, Hk, d,
+      dv, causal, window, sm_scale, vec);
   return cudaGetLastError();
 }
 
@@ -809,20 +820,21 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
 // above D = 128, where the 8-warp tile's shared memory does not fit
 template <typename T, int DMAX>
 cudaError_t launch_flash_tile(const void* q, const void* k, const void* v,
-                              void* o, int B, int S, int S_kv, int H, int Hk,
-                              int d, int dv, int causal, int window,
-                              float sm_scale, int sms, cudaStream_t stream) {
+                              void* o, float* lse, int B, int S, int S_kv,
+                              int H, int Hk, int d, int dv, int causal,
+                              int window, float sm_scale, int sms,
+                              cudaStream_t stream) {
   if constexpr (DMAX > 128) {
-    return launch_flash<T, DMAX, 4, 16>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
-                                        causal, window, sm_scale, stream);
+    return launch_flash<T, DMAX, 4, 16>(q, k, v, o, lse, B, S, S_kv, H, Hk, d,
+                                        dv, causal, window, sm_scale, stream);
   } else {
     if ((long long)B * H * ((S + 127) / 128) >= 2LL * sms)
-      return launch_flash<T, DMAX, 8, 32>(q, k, v, o, B, S, S_kv, H, Hk, d,
-                                          dv, causal, window, sm_scale,
+      return launch_flash<T, DMAX, 8, 32>(q, k, v, o, lse, B, S, S_kv, H, Hk,
+                                          d, dv, causal, window, sm_scale,
                                           stream);
-    return launch_flash<T, DMAX, 4, kSmallBK>(q, k, v, o, B, S, S_kv, H, Hk,
-                                              d, dv, causal, window, sm_scale,
-                                              stream);
+    return launch_flash<T, DMAX, 4, kSmallBK>(q, k, v, o, lse, B, S, S_kv, H,
+                                              Hk, d, dv, causal, window,
+                                              sm_scale, stream);
   }
 }
 
@@ -830,20 +842,21 @@ cudaError_t launch_flash_tile(const void* q, const void* k, const void* v,
 // 96, v 64) takes DMAX 128
 template <typename T>
 cudaError_t launch_flash_d(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int S_kv, int H, int Hk,
-                           int d, int dv, int causal, int window,
+                           void* o, float* lse, int B, int S, int S_kv, int H,
+                           int Hk, int d, int dv, int causal, int window,
                            float sm_scale, int sms, cudaStream_t stream) {
   const int dm = max(d, dv);
   if (dm <= 32)
-    return launch_flash_tile<T, 32>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
+    return launch_flash_tile<T, 32>(q, k, v, o, lse, B, S, S_kv, H, Hk, d, dv,
                                     causal, window, sm_scale, sms, stream);
   if (dm <= 64)
-    return launch_flash_tile<T, 64>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
+    return launch_flash_tile<T, 64>(q, k, v, o, lse, B, S, S_kv, H, Hk, d, dv,
                                     causal, window, sm_scale, sms, stream);
   if (dm <= 128)
-    return launch_flash_tile<T, 128>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
-                                     causal, window, sm_scale, sms, stream);
-  return launch_flash_tile<T, 256>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
+    return launch_flash_tile<T, 128>(q, k, v, o, lse, B, S, S_kv, H, Hk, d,
+                                     dv, causal, window, sm_scale, sms,
+                                     stream);
+  return launch_flash_tile<T, 256>(q, k, v, o, lse, B, S, S_kv, H, Hk, d, dv,
                                    causal, window, sm_scale, sms, stream);
 }
 
@@ -882,31 +895,36 @@ size_t dtype_size(int dtype) { return dtype == 0 ? 4 : 2; }
 extern "C" {
 
 // dtype: 0 float32, 1 float16, 2 bfloat16. q (B, S, H, d), k (B, S_kv, Hk,
-// d), v (B, S_kv, Hk, dv), o (B, S, H, dv), all contiguous; S, S_kv >= 1 and
+// d), v (B, S_kv, Hk, dv), o (B, S, H, dv), all contiguous; lse null (not
+// written) or (B, H, S) float32, each row's m + log(max(l, 1e-30)) over its
+// scaled scores (the backward's residual; o's bits do not depend on it);
+// S, S_kv >= 1 and
 // S <= 65535 * 64; window 0 (none) or the sliding window (keys j > i -
 // window); sms the card's SM count (the tile's choice). Returns a
 // cudaError_t (0 = launched).
 int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* o, int B, int S, int S_kv,
-                           int H, int Hk, int d, int dv, int causal,
+                           const void* v, void* o, void* lse_, int B, int S,
+                           int S_kv, int H, int Hk, int d, int dv, int causal,
                            int window, float sm_scale, int sms,
                            void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
+  float* lse = (float*)lse_;
   if (!shapes_ok(B, H, Hk, d) || dv < 1 || dv > kMaxD || S < 1 ||
       S_kv < 1 || sms < 1 || window < 0 || (S + 63) / 64 > 65535 ||
       flash_smem(d, dv) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return (int)launch_flash_d<float>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
-                                        causal, window, sm_scale, sms, stream);
+      return (int)launch_flash_d<float>(q, k, v, o, lse, B, S, S_kv, H, Hk, d,
+                                        dv, causal, window, sm_scale, sms,
+                                        stream);
     case 1:
-      return (int)launch_flash_d<__half>(q, k, v, o, B, S, S_kv, H, Hk, d, dv,
-                                         causal, window, sm_scale, sms,
+      return (int)launch_flash_d<__half>(q, k, v, o, lse, B, S, S_kv, H, Hk, d,
+                                         dv, causal, window, sm_scale, sms,
                                          stream);
     case 2:
-      return (int)launch_flash_d<__nv_bfloat16>(q, k, v, o, B, S, S_kv, H, Hk,
-                                                d, dv, causal, window,
+      return (int)launch_flash_d<__nv_bfloat16>(q, k, v, o, lse, B, S, S_kv, H,
+                                                Hk, d, dv, causal, window,
                                                 sm_scale, sms, stream);
   }
   return (int)cudaErrorInvalidValue;

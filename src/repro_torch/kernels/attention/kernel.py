@@ -27,7 +27,11 @@ On a CUDA tensor each entry launches its kernel on the current stream
 (``repro_torch.device.launch``), built from source at first use
 (``repro_torch._build``), and raises on any build or launch failure.
 Only tensors on the CPU, which the tests pass, go to the plain versions
-in ``ref.py``. ``flash_attention.launches`` and
+in ``ref.py``. Neither kernel has a backward here: on a CUDA tensor that
+requires grad under grad mode each entry raises (``device.refuse_grad``);
+training reaches K6 through ``models.flash.flash_mha``, an autograd
+Function whose forward launches it with grad off and asks for the rows'
+log-sum-exp (``return_lse``). ``flash_attention.launches`` and
 ``decode_attention.launches`` count the launches of K6 and K7 through
 either entry, one a call.
 
@@ -73,8 +77,8 @@ _INT32_MAX = 2**31 - 1
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                           i, i, i, f, i, p]
+    lib.flash_attention_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
+                                           i, i, i, i, f, i, p]
     lib.flash_attention_launch.restype = i
     lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
                                             i, i, f, i, p]
@@ -124,11 +128,14 @@ def _check_heads(what, h, hk, d, dk):
         raise ValueError(f"{what}: q and k head dims differ ({d}, {dk})")
 
 
-def _launch_flash(q, k, v, causal, window, sm_scale):
+def _launch_flash(q, k, v, causal, window, sm_scale, return_lse=False):
     """K6 on contiguous ``(B, S, H, D)`` / ``(B, S_kv, Hk, D)`` q, k and
     ``(B, S_kv, Hk, Dv)`` v CUDA tensors, masked to the sliding window where
-    ``window > 0``; the output is ``(B, S, H, Dv)`` in q's dtype."""
+    ``window > 0``; the output is ``(B, S, H, Dv)`` in q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp, ``(B, Hk, H // Hk, S)``
+    float32."""
     what = "flash_attention"
+    device.refuse_grad("flash_attention (K6)", q, k, v)
     _check_cuda(what, q, k, v)
     b, s, h, d = q.shape
     s_kv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -137,26 +144,30 @@ def _launch_flash(q, k, v, causal, window, sm_scale):
             raise ValueError(f"{what}: head dim {dim} outside [1, "
                              f"{MAX_HEAD_DIM}]")
     out = q.new_empty((b, s, h, dv))
+    lse = (torch.empty((b, hk, h // hk, s), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if s_kv == 0:
         raise ValueError(f"{what}: no keys to attend to")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     rc = device.launch(
         q.device, _lib().flash_attention_launch, _DTYPES[q.dtype],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s_kv,
-        h, hk, d, dv, int(bool(causal)), int(window), float(sm_scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, s_kv, h, hk, d, dv,
+        int(bool(causal)), int(window), float(sm_scale),
         sm_count(q.device.index),
     )
     _raise_on(rc, what)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _launch_decode(q, k_cache, v_cache, lengths, sm_scale):
     """K7 on contiguous q ``(B, H, D)`` and caches ``(B, C, Hk, D)`` CUDA
     tensors, frontier ``lengths`` ``(B,)``; the output is ``(B, H, D)``."""
     what = "decode_attention"
+    device.refuse_grad("decode_attention (K7)", q, k_cache, v_cache)
     _check_cuda(what, q, k_cache, v_cache)
     b, h, d = q.shape
     cap, hk = k_cache.shape[1], k_cache.shape[2]
@@ -249,13 +260,18 @@ flash_attention.launches = 0
 
 
 def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_block: int = 512, kv_block: int = 512):
+                        q_block: int = 512, kv_block: int = 512,
+                        return_lse: bool = False):
     """``flash_mha``'s function: q ``(B, S, H, D)`` over k ``(B, S_kv, Hk,
     D)`` and v ``(B, S_kv, Hk, Dv)``, scale ``D**-0.5`` → ``(B, S, H, Dv)``
     (``Dv`` differs from ``D`` in MLA's prefill, 64 against 96).
     ``window > 0`` masks keys ``j <= i - window`` (gemma3's sliding
     window, the reference's ``flash._mask``). ``q_block``/``kv_block`` are
-    the plain version's blocks."""
+    the plain version's blocks. With ``return_lse`` it returns ``(out,
+    lse)``, ``lse`` ``(B, Hk, H // Hk, S)`` float32, each row's
+    ``m + log(max(l, 1e-30))`` over its scaled scores: the residual of the
+    backward (``models.flash``), as the reference's ``_flash_fwd_impl``
+    returns it. The output's bits are the same either way."""
     _check_blocks(q_block, kv_block)
     if int(window) < 0:
         raise ValueError(f"flash_attention_gqa: window {window} < 0")
@@ -269,8 +285,10 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
                  k.shape[3])
     if _device("flash_attention_gqa", q, k, v).type == "cpu":
         return flash_gqa_ref(q, k, v, causal=causal, window=int(window),
-                             q_block=q_block, kv_block=kv_block)
-    return _launch_flash(q, k, v, causal, int(window), q.shape[3] ** -0.5)
+                             q_block=q_block, kv_block=kv_block,
+                             return_lse=return_lse)
+    return _launch_flash(q, k, v, causal, int(window), q.shape[3] ** -0.5,
+                         return_lse)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float = 1.0,

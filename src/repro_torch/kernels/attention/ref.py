@@ -58,12 +58,15 @@ def window_mask(q_pos, k_pos, causal, window):
 
 
 def flash_gqa_ref(q, k, v, *, causal=True, window=0, q_block=512,
-                  kv_block=512):
+                  kv_block=512, return_lse=False):
     """``flash_mha``'s blocked online softmax: q ``(B, S, H, D)``, k
     ``(B, S_kv, Hk, D)`` and v ``(B, S_kv, Hk, Dv)`` (the output is
     ``(B, S, H, Dv)``), query head ``h`` on kv head ``h // (H // Hk)``,
     scale ``D**-0.5``. The last block of either axis may be ragged (the
-    reference asserts that the blocks divide S and S_kv)."""
+    reference asserts that the blocks divide S and S_kv). With
+    ``return_lse`` it returns ``(out, lse)``, ``lse`` ``(B, Hk, H // Hk,
+    S)`` float32, ``m + log(max(l, 1e-30))`` a row, as the reference's
+    ``_flash_fwd_impl`` (``src/repro/models/flash.py:68``)."""
     b, s, h, d = q.shape
     s_kv, hk = k.shape[1], k.shape[2]
     dv = v.shape[3]
@@ -73,6 +76,7 @@ def flash_gqa_ref(q, k, v, *, causal=True, window=0, q_block=512,
     qr = q.reshape(b, s, hk, rep, d).float() * (d ** -0.5)
     kr, vr = k.float(), v.float()
     out = torch.empty(b, s, h, dv, dtype=q.dtype, device=dev)
+    lse = torch.empty(b, hk, rep, s, device=dev) if return_lse else None
     for q0 in range(0, s, qb):
         qblk = qr[:, q0:q0 + qb]
         n_q = qblk.shape[1]
@@ -96,7 +100,9 @@ def flash_gqa_ref(q, k, v, *, causal=True, window=0, q_block=512,
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + n_q] = o.permute(0, 3, 1, 2, 4).reshape(
             b, n_q, h, dv).to(q.dtype)
-    return out
+        if return_lse:
+            lse[..., q0:q0 + n_q] = m + torch.log(torch.clamp(l, min=1e-30))
+    return (out, lse) if return_lse else out
 
 
 def decode_gqa_ref(q, k_cache, v_cache, lengths, *, sm_scale):

@@ -76,6 +76,7 @@ def csr_spmv(cols, vals, x, *, block_r: int = 128):
         return csr_spmv_ref(cols, vals, x)
     if dev.type != "cuda":
         raise ValueError(f"csr_spmv: unsupported device {dev}")
+    device.refuse_grad("csr_spmv (K4)", vals, x)
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"csr_spmv: x must be float32 or float64 on the "
                          f"card, got {x.dtype}")

@@ -111,6 +111,7 @@ def hazard_frontier_batch(src_addr, dst_addr, *, side: str = "right"):
         return hazard_frontier_batch_ref(src_addr, dst_addr, side=side)
     if dev.type != "cuda":
         raise ValueError(f"hazard_frontier: unsupported device {dev}")
+    device.refuse_grad("hazard_frontier (K2)", src_addr, dst_addr)
     d = dst_addr.shape[1]
     if max(s, d) > _INT32_MAX or k > 65535:
         raise ValueError("hazard_frontier: S, D < 2**31 and K <= 65535")

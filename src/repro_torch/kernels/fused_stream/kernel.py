@@ -109,6 +109,7 @@ def fused_stream(src_addr, src_val, frontier, dst_addr, memory,
                                 memory, src_valid, lookback=int(lookback))
     if dev.type != "cuda":
         raise ValueError(f"fused_stream: unsupported device {dev}")
+    device.refuse_grad("fused_stream (K3)", src_val, memory)
     s, d = src_addr.shape[0], dst_addr.shape[0]
     if max(s, d, int(lookback)) > _INT32_MAX:
         raise ValueError("fused_stream: S, D and lookback must be < 2**31")

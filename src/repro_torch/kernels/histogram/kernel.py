@@ -63,6 +63,7 @@ def histogram(data, *, n_bins: int, block: int = 512):
         return histogram_ref(data, n_bins=n_bins)
     if dev.type != "cuda":
         raise ValueError(f"histogram: unsupported device {dev}")
+    device.refuse_grad("histogram (K5)", data)
     if data.shape[0] > _INT32_MAX:
         raise ValueError("histogram: N must be < 2**31")
     out = torch.empty(n_bins, dtype=torch.float32, device=dev)

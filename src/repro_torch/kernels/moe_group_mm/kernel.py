@@ -75,6 +75,7 @@ def group_matmul(x_sorted, w, block_expert, *, block_t: int = 128):
         return group_matmul_ref(x_sorted, w, block_expert, block_t=block_t)
     if dev.type != "cuda":
         raise ValueError(f"group_matmul: unsupported device {dev}")
+    device.refuse_grad("group_matmul (K9)", x_sorted, w)
     if x_sorted.dtype not in _DTYPES or w.dtype != x_sorted.dtype:
         raise TypeError(f"group_matmul: x and w must share one of float32, "
                         f"float16, bfloat16 on the card, got {x_sorted.dtype} "

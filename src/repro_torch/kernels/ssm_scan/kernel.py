@@ -22,6 +22,20 @@ first use (``repro_torch._build``), through
 failure. Only tensors on the CPU, which the tests pass, go to the plain
 versions in ``ref.py``. ``ssm_scan.launches`` counts the kernel's
 launches through either entry; S = 0 returns without one.
+
+``selective_scan`` is differentiable: where grad mode is on and an input
+requires grad it runs ``_Scan``, an autograd Function whose forward is
+the kernel (the plain version on the CPU) and whose backward recomputes
+through the plain version (``scan_bwd``) in chunks of ``BWD_CHUNK``
+positions, as the reference's ``jax.checkpoint`` of each chunk does
+(``src/repro/models/ssm.py:135``): first the state at each chunk's start
+without grad, then, from the last chunk back, the chunk's plain
+recurrence under ``enable_grad`` and ``torch.autograd.grad`` with the
+cotangents of its outputs and of its end state. That is autograd of the
+plain version the tests hold against the reference, not a hand-derived
+formula, and its graph holds one chunk, not the ``(B, S, di, n)`` states.
+The backward launches no kernel. It gives gradients for xi, dt, B, C,
+a_neg and h0.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ from repro_torch import _build, device
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
 MAX_STATE = 16  # kMaxN in csrc/ssm_scan.cu
+BWD_CHUNK = 128  # positions a chunk of the backward (the reference's ssm_chunk)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -108,10 +123,73 @@ def _launch(xi, dt, bmat, cmat, a_neg, h0):
 def selective_scan(xi, dt, bmat, cmat, a_neg, h0=None):
     """xi, dt ``(B, S, di)``; bmat, cmat ``(B, S, n)``; a_neg ``(di, n)``;
     h0 ``(B, di, n)`` or None (zeros) → ``(y (B, S, di) in xi's dtype,
-    h_final (B, di, n) float32)``."""
-    if _check(xi, dt, bmat, cmat, a_neg, h0).type == "cpu":
+    h_final (B, di, n) float32)``; differentiable in every input."""
+    _check(xi, dt, bmat, cmat, a_neg, h0)
+    inputs = (xi, dt, bmat, cmat, a_neg, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _Scan.apply(*inputs)
+    return _forward(*inputs)
+
+
+def _forward(xi, dt, bmat, cmat, a_neg, h0):
+    if xi.device.type == "cpu":
         return selective_scan_ref(xi, dt, bmat, cmat, a_neg, h0)
     return _launch(xi, dt, bmat, cmat, a_neg, h0)
+
+
+class _Scan(torch.autograd.Function):
+    """K8 forward (the plain version on the CPU), chunked recompute
+    backward (``scan_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, xi, dt, bmat, cmat, a_neg, h0):
+        ctx.save_for_backward(xi, dt, bmat, cmat, a_neg, h0)
+        return _forward(xi, dt, bmat, cmat, a_neg, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return scan_bwd(*ctx.saved_tensors, gy, gh)
+
+
+def scan_bwd(xi, dt, bmat, cmat, a_neg, h0, gy, gh, chunk=BWD_CHUNK):
+    """Gradients of ``selective_scan`` for ``(xi, dt, bmat, cmat, a_neg,
+    h0)`` (None for an absent h0) at the cotangents ``gy`` of y and ``gh``
+    of h_final (either may be None): the plain recurrence recomputed chunk
+    by chunk from the last, each chunk differentiated by autograd."""
+    b, s, di = xi.shape
+    n = a_neg.shape[1]
+    h = (torch.zeros((b, di, n), dtype=torch.float32, device=xi.device)
+         if h0 is None else h0.detach().float())
+    starts = []
+    with torch.no_grad():
+        for c0 in range(0, s, chunk):
+            starts.append(h)
+            _, h = selective_scan_ref(*(t[:, c0:c0 + chunk] for t in
+                                        (xi, dt, bmat, cmat)), a_neg, h)
+    grads = [torch.zeros_like(t) for t in (xi, dt, bmat, cmat)]
+    g_a = torch.zeros_like(a_neg)
+    g_h = (torch.zeros((b, di, n), dtype=torch.float32, device=xi.device)
+           if gh is None else gh.float())
+    for c0, h_start in zip(reversed(range(0, s, chunk)), reversed(starts)):
+        with torch.enable_grad():
+            part = [t[:, c0:c0 + chunk].detach().requires_grad_()
+                    for t in (xi, dt, bmat, cmat)]
+            a = a_neg.detach().requires_grad_()
+            h_in = h_start.requires_grad_()
+            y, h_end = selective_scan_ref(*part, a, h_in)
+            outs, cots = [h_end], [g_h]
+            if gy is not None:
+                outs.append(y)
+                cots.append(gy[:, c0:c0 + chunk])
+            *g_part, g_a_c, g_h = torch.autograd.grad(
+                outs, part + [a, h_in], cots, allow_unused=True)
+        for acc, g in zip(grads, g_part):
+            if g is not None:
+                acc[:, c0:c0 + chunk] = g
+        g_a += g_a_c
+    g_h0 = None if h0 is None else g_h.to(h0.dtype)
+    return (*grads, g_a, g_h0)
 
 
 def ssm_scan(xi, dt, bmat, cmat, a_neg, *, chunk: int = 128,

@@ -42,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import _build
-from repro_torch.device import launch
+from repro_torch.device import launch, refuse_grad
 from repro_torch.kernels.wave_exec.ref import wave_loop_ref
 
 THREADS = 256  # wide path: threads per block, kThreads in csrc/wave_exec.cu
@@ -196,6 +196,7 @@ def wave_loop(mem, addrs, writes, svals):
         return wave_loop_ref(mem, addrs, writes, svals)
     if mem.device.type != "cuda":
         raise ValueError(f"wave_loop: unsupported device {mem.device}")
+    refuse_grad("wave_loop (K1)", mem, svals)
     return run_path(mem, addrs, writes, svals,
                     launch_path(mem.shape[0], addrs.shape[1], mem.device))
 

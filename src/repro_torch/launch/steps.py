@@ -1,18 +1,52 @@
-"""Step-function builders: prefill_step / serve_step.
+"""Step-function builders: train_step / prefill_step / serve_step.
 
-The port of ``src/repro/launch/steps.py`` for serving; the functions run
-eagerly on whatever device the params and tokens live on (the reference
-hands them to ``jax.jit``). ``make_train_step`` waits for training
-(ROADMAP queue 1, item 13).
+The port of ``src/repro/launch/steps.py``; the functions run eagerly on
+whatever device the params and tokens live on (the reference hands them
+to ``jax.jit``). Its activation sharding constraints do nothing on one
+card and have no counterpart here.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
+from repro_torch import pytree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
+                    dt: L.Dtypes = L.FP32):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss (``transformer.loss_fn``), its gradient in every
+    parameter by ``torch.autograd.grad``, then one AdamW step
+    (``adamw.apply_updates``, in place). ``metrics`` holds ``loss``,
+    ``grad_norm`` and ``lr`` as 0-d tensors. The parameters require grad
+    only while the loss and its gradient are computed."""
+    def train_step(params, opt_state, batch):
+        leaves = pytree.leaves(params)
+        try:
+            with torch.enable_grad():
+                for p in leaves:
+                    p.requires_grad_(True)
+                loss = T.loss_fn(params, batch, cfg, dt)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        by_id = {id(p): g for p, g in zip(leaves, grads)}
+        grads = pytree.map_leaves(lambda p: by_id[id(p)], params)
+        params2, opt2, metrics = adamw.apply_updates(
+            params, grads, opt_state, opt_cfg
+        )
+        metrics["loss"] = loss.detach()
+        return params2, opt2, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, dt: L.Dtypes = L.FP32,

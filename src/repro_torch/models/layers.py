@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention.ref import NEG_INF
@@ -52,6 +53,28 @@ BF16 = Dtypes()
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+
+
+def _requires_grad(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    return isinstance(x, dict) and any(map(_requires_grad, x.values()))
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    saved (``torch.utils.checkpoint``, non-reentrant) where autograd will
+    need them: grad mode on and a tensor among ``args`` (or in a dict of
+    parameters among them) requiring grad. That is the reference's
+    ``jax.checkpoint(..., policy=nothing_saveable)`` around each layer
+    body, each Mamba-2 chunk and each cross-entropy chunk. Anywhere else
+    (serving) it is the plain call: the checkpoint machinery costs host
+    time a call, and its first use imports ``torch._dynamo``, seconds.
+    ``fn`` draws no random numbers, so no RNG state is kept."""
+    if not (torch.is_grad_enabled() and any(map(_requires_grad, args))):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def rms_norm(x, scale, eps):

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan.kernel import selective_scan
-from repro_torch.models.layers import Dtypes, _init, rms_norm
+from repro_torch.models.layers import Dtypes, _init, remat, rms_norm
 
 MAMBA2_HEAD = 64  # channels a Mamba-2 head (src/repro/models/ssm.py:27)
 
@@ -151,40 +151,51 @@ def _mamba2_chunked(p, x_resid, xi, cfg: ArchConfig, h0, chunk: int):
     """x_resid ``(B, S, d)``, the block input B, C and the steps are
     projected from; xi ``(B, S, di)`` post-conv/silu; h0 ``(B, nh, 64,
     n)``. Returns ``(y (B, S, di) float32, h_final)``."""
-    b, s, di = xi.shape
+    s = xi.shape[1]
     n = cfg.ssm_state
-    nh, hd = di // MAMBA2_HEAD, MAMBA2_HEAD
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"_mamba2_chunked: S={s} is not a multiple of the "
                          f"chunk {c} (cfg.ssm_chunk), as the reference's "
                          f"chunked form needs")
-    a_neg = -torch.exp(p["a_log"])  # (nh,)
-    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=xi.device))
     h, ys = h0, []
     for c0 in range(0, s, c):
-        bmat, cmat, dt_ = _bc_dt(p, x_resid[:, c0:c0 + c], n)  # dt_ (B, C, nh)
-        xf = xi[:, c0:c0 + c].reshape(b, c, nh, hd).float()
-        logcum = torch.cumsum(a_neg * dt_, dim=1)  # (B, C, nh), <= 0
-        # inside the chunk: y[t] = sum_{j<=t} exp(lc_t - lc_j) (C_t.B_j) dt_j
-        # x_j; exp of the masked upper triangle may be inf, so it is
-        # replaced (where), never multiplied by the mask
-        ldiff = torch.clamp(logcum[:, :, None, :] - logcum[:, None, :, :],
-                            min=-30.0)  # (B, C, C, nh): t rows, j columns
-        w = torch.where(tri[None, :, :, None], torch.exp(ldiff), 0.0)
-        scores = torch.einsum("btn,bjn->btj", cmat, bmat)
-        wmat = w * scores[..., None] * dt_[:, None, :, :]
-        y_intra = torch.einsum("btjh,bjhp->bthp", wmat, xf)
-        # the carried state's contribution
-        decay_t = torch.exp(torch.clamp(logcum, min=-30.0))
-        y_inter = torch.einsum("btn,bhpn,bth->bthp", cmat, h, decay_t)
-        # h' = decay_C h + sum_j exp(lc_C - lc_j) dt_j x_j B_j
-        decay_last = torch.exp(torch.clamp(logcum[:, -1:, :] - logcum,
-                                           min=-30.0)) * dt_
-        h = (torch.exp(torch.clamp(logcum[:, -1], min=-30.0))[:, :, None, None]
-             * h + torch.einsum("bjh,bjhp,bjn->bhpn", decay_last, xf, bmat))
-        ys.append((y_intra + y_inter).reshape(b, c, di))
+        # recomputed in the backward, as the reference's jax.checkpoint of
+        # each chunk (src/repro/models/ssm.py:218)
+        h, y = remat(_ssd_chunk, p, x_resid[:, c0:c0 + c], xi[:, c0:c0 + c],
+                     h, n)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+def _ssd_chunk(p, xr, xi, h, n):
+    """One SSD chunk: block input xr ``(B, C, d)``, xi ``(B, C, di)``,
+    carried state h ``(B, nh, 64, n)`` → ``(h_new, y (B, C, di))``."""
+    b, c, di = xi.shape
+    nh, hd = di // MAMBA2_HEAD, MAMBA2_HEAD
+    a_neg = -torch.exp(p["a_log"])  # (nh,)
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=xi.device))
+    bmat, cmat, dt_ = _bc_dt(p, xr, n)  # dt_ (B, C, nh)
+    xf = xi.reshape(b, c, nh, hd).float()
+    logcum = torch.cumsum(a_neg * dt_, dim=1)  # (B, C, nh), <= 0
+    # inside the chunk: y[t] = sum_{j<=t} exp(lc_t - lc_j) (C_t.B_j) dt_j
+    # x_j; exp of the masked upper triangle may be inf, so it is replaced
+    # (where), never multiplied by the mask
+    ldiff = torch.clamp(logcum[:, :, None, :] - logcum[:, None, :, :],
+                        min=-30.0)  # (B, C, C, nh): t rows, j columns
+    w = torch.where(tri[None, :, :, None], torch.exp(ldiff), 0.0)
+    scores = torch.einsum("btn,bjn->btj", cmat, bmat)
+    wmat = w * scores[..., None] * dt_[:, None, :, :]
+    y_intra = torch.einsum("btjh,bjhp->bthp", wmat, xf)
+    # the carried state's contribution
+    decay_t = torch.exp(torch.clamp(logcum, min=-30.0))
+    y_inter = torch.einsum("btn,bhpn,bth->bthp", cmat, h, decay_t)
+    # h' = decay_C h + sum_j exp(lc_C - lc_j) dt_j x_j B_j
+    decay_last = torch.exp(torch.clamp(logcum[:, -1:, :] - logcum,
+                                       min=-30.0)) * dt_
+    h_new = (torch.exp(torch.clamp(logcum[:, -1], min=-30.0))[:, :, None, None]
+             * h + torch.einsum("bjh,bjhp,bjn->bhpn", decay_last, xf, bmat))
+    return h_new, (y_intra + y_inter).reshape(b, c, di)
 
 
 def _mamba2_step(p, xr_t, xh_t, h, n):

@@ -1,4 +1,4 @@
-"""Model assembly, the serving subset.
+"""Model assembly: serving and the training loss.
 
 The port of the reference's model API (``src/repro/models/transformer.py``)
 for all ten configurations: the dense GQA decoders (qwen3-14b,
@@ -13,14 +13,24 @@ hybrid (zamba2-7b):
   prefill(params, tokens, cfg, dt, ...)        -> (last-token logits, cache)
   decode_step(params, tokens, cache, lengths, cfg, dt) -> (logits, cache)
   init_cache(cfg, batch, max_seq, dt, device=) -> cache
+  loss_fn(params, batch, cfg, dt)              -> mean next-token loss
+  chunked_ce(hidden, targets, w_out)           -> the same, from the hidden
 
 Parameters are a dict with the reference's key names and shapes, layer
 weights stacked over a leading layer axis (``layers.attn.wq`` is
 ``(L, d, nh·hd)``), so ``models/convert.py`` carries the reference's
 weights across leaf by leaf. The layers run as a Python loop over views
-of the stacks (the reference's ``lax.scan``; its remat and activation
-sharding do nothing on one card and have no counterpart here). gemma3's
-local and global layers and zamba2's segments run in the same loop.
+of the stacks (the reference's ``lax.scan``; its activation sharding does
+nothing on one card and has no counterpart here). Under grad mode each
+layer body, each whisper encoder layer and each cross-entropy chunk is
+recomputed in the backward (``layers.remat``), where the reference wraps
+them in ``jax.checkpoint(..., nothing_saveable)``; zamba2's shared block
+is not, as in the reference. gemma3's local and global layers and
+zamba2's segments run in the same loop.
+
+Training differentiates through K6 and K8 by their autograd Functions
+(``flash.flash_mha``, ``ssm_scan.selective_scan``); MoE layers train on
+the capacity path, plain torch, so no K9 is on it.
 
 Full-sequence attention goes through ``flash.flash_mha``, which launches
 the flash attention kernel K6 on the card; the decode step's attention
@@ -294,20 +304,25 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
 def _scan_attn(stacked, x, cfg: ArchConfig, positions, enc_out=None,
                inference=False):
     for i, window in enumerate(_window_schedule(cfg)):
-        x = _attn_mlp_block(layer_params(stacked, i), x, cfg,
-                            positions=positions, window=window,
-                            enc_out=enc_out, inference=inference)
+        x = L.remat(
+            lambda lp, x, window=window: _attn_mlp_block(
+                lp, x, cfg, positions=positions, window=window,
+                enc_out=enc_out, inference=inference),
+            layer_params(stacked, i), x)
     return x
+
+
+def _ssm_layer(lp, x, cfg: ArchConfig):
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    y, _ = S.mamba_apply(lp["ssm"], h, cfg)
+    return x + y
 
 
 def _scan_ssm(stacked, x, cfg: ArchConfig, layers):
     """Pre-norm Mamba layers ``layers`` over the whole sequence from zero
     states: one K8 launch per Mamba-1 layer on the card."""
     for i in layers:
-        lp = layer_params(stacked, i)
-        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        y, _ = S.mamba_apply(lp["ssm"], h, cfg)
-        x = x + y
+        x = L.remat(_ssm_layer, layer_params(stacked, i), x, cfg)
     return x
 
 
@@ -341,17 +356,65 @@ def _encode(params, frames, cfg: ArchConfig, dt: Dtypes = L.FP32):
     b, f, _ = x.shape
     positions = torch.arange(f, device=x.device)[None, :].expand(b, f)
     for i in range(cfg.n_enc_layers):
-        lp = layer_params(params["enc_layers"], i)
-        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        y = x + L.gqa_apply(lp["attn"], h, cfg, positions=positions,
-                            causal=False, use_rope=False, eps=cfg.norm_eps)
-        h = L.rms_norm(y, lp["mlp_norm"], cfg.norm_eps)
-        x = y + L.mlp_apply(lp["mlp"], h, cfg)
+        x = L.remat(_enc_layer, layer_params(params["enc_layers"], i), x,
+                    positions, cfg)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_layer(lp, x, positions, cfg: ArchConfig):
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    y = x + L.gqa_apply(lp["attn"], h, cfg, positions=positions,
+                        causal=False, use_rope=False, eps=cfg.norm_eps)
+    h = L.rms_norm(y, lp["mlp_norm"], cfg.norm_eps)
+    return y + L.mlp_apply(lp["mlp"], h, cfg)
 
 
 def _w_out(params, cfg: ArchConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# loss: chunked cross-entropy (logits never materialized at (B, S, V))
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(h, t, w_out):
+    """Summed ``logsumexp - gold logit`` over one chunk ``h`` ``(B, c,
+    d)`` of targets ``t`` ``(B, c)``, logits in float32."""
+    logits = h.float() @ w_out.float()  # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_ce(hidden, targets, w_out, *, chunk: int = 512):
+    """Mean cross-entropy of ``hidden`` ``(B, S, d)`` against ``targets``
+    ``(B, S)`` under the head ``w_out`` ``(d, V)``, over chunks of
+    ``min(chunk, S)`` positions, each recomputed in the backward (the
+    reference's ``chunked_ce``, ``src/repro/models/transformer.py:317``):
+    a chunk's ``(B, c, V)`` logits exist only while it runs. As there, S
+    must be a multiple of the chunk (the reference fails on its reshape;
+    this raises ``ValueError``)."""
+    b, s, d = hidden.shape
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"chunked_ce: S={s} is not a multiple of the chunk "
+                         f"{c}, as the reference's chunking needs")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, c):
+        total = total + L.remat(_ce_chunk, hidden[:, c0:c0 + c],
+                                targets[:, c0:c0 + c], w_out)
+    return total / (b * s)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, dt: Dtypes = L.FP32):
+    """The mean next-token loss of ``batch`` (``tokens``, ``targets``
+    ``(B, S)``; ``frontend`` where the config has one): the forward's
+    final hidden states through ``chunked_ce`` under the head (``embed.T``
+    when the embeddings are tied)."""
+    hidden = forward_hidden(params, batch["tokens"], cfg, dt,
+                            frontend=batch.get("frontend"))
+    return chunked_ce(hidden, batch["targets"], _w_out(params, cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,11 @@ wrapped ring) against their plain torch versions, a reduced qwen3-14b's
 and falcon-mamba-7b's prefill and decode step, a reduced zamba2-7b's,
 gemma3-4b's, minicpm3-4b's and whisper-tiny's prefill and teacher-forced
 decode, and a reduced phi3.5-moe's prefill and dropless MoE
-layer on the card against the CPU, the main path on the card against the oracle (a speculative
+layer on the card against the CPU; for training, K6's rows' log-sum-exp
+(and its output bits with and without it), ``flash_mha``'s and
+``selective_scan``'s gradients against the plain versions', every reduced
+family's loss and gradients against the CPU, ``train.main``'s K6 launches
+a step, and the grad guard of the wrappers without a backward; the main path on the card against the oracle (a speculative
 and a streaming program included), the substrate ops, and the DU-kernel
 cross-checks of a WavePlan on the card.
 
@@ -868,8 +872,8 @@ def _flash_raw(cuda, q, k, v, causal, window, sms):
     s_kv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty((b, s, h, dv))
     rc = attn._lib().flash_attention_launch(
-        0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-        s_kv, h, hk, d, dv, int(causal), window, d ** -0.5, sms,
+        0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b,
+        s, s_kv, h, hk, d, dv, int(causal), window, d ** -0.5, sms,
         torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
@@ -1478,3 +1482,229 @@ def test_reduced_falcon_mamba_on_card_matches_the_cpu(cuda):
     for key in ("conv", "h"):
         assert torch.allclose(cache["ssm"][key].cpu(), cache_cpu["ssm"][key],
                               atol=2e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# training: K6's lse, the gradients through K6 and K8, the loss on the card
+# ---------------------------------------------------------------------------
+
+# (B, S, S_kv, H, Hk, D, Dv, causal, window)
+LSE_CASES = [
+    (2, 300, 300, 4, 2, 128, 128, True, 0),
+    (2, 257, 257, 8, 4, 256, 256, True, 64),
+    (1, 200, 200, 4, 4, 96, 64, True, 0),
+    (2, 33, 90, 6, 6, 64, 64, False, 0),
+    (1, 96, 96, 4, 2, 32, 24, False, 16),
+]
+
+
+def _lse_ref(q, k, causal, window):
+    """Each row's log-sum-exp of its scaled, masked scores, ``(B, Hk, rep,
+    S)``, from the full scores."""
+    from repro_torch.kernels.attention.ref import NEG_INF, window_mask
+
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    qr = q.reshape(b, s, hk, h // hk, d).float() * d ** -0.5
+    sc = torch.einsum("bqhrd,bkhd->bhrqk", qr, k.float())
+    mask = window_mask(torch.arange(s, device=q.device),
+                       torch.arange(k.shape[1], device=q.device), causal,
+                       window)
+    return torch.logsumexp(torch.where(mask, sc, NEG_INF), dim=-1)
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_flash_lse_matches_plain_and_leaves_the_output_bits(cuda, case):
+    """K6 with ``return_lse``: its lse against the plain loop's and the
+    full scores', and its output the same bits as without (both tiles up
+    to D=128, through the raw launcher's SM count)."""
+    b, s, s_kv, h, hk, d, dv, causal, window = case
+    q = _randn(90, b, s, h, d, device=cuda)
+    k, v = _randn(91, b, s_kv, hk, d, device=cuda), _randn(
+        92, b, s_kv, hk, dv, device=cuda)
+    before = attn.flash_attention.launches
+    out, lse = attn.flash_attention_gqa(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+    plain = attn.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 2
+    assert torch.equal(out, plain)
+    want_out, want_lse = flash_gqa_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    assert lse.shape == (b, hk, h // hk, s) and lse.dtype == torch.float32
+    assert (lse - want_lse).abs().max().item() <= ATTN_TOL[torch.float32]
+    assert (lse - _lse_ref(q, k, causal, window)).abs().max().item() <= (
+        ATTN_TOL[torch.float32])
+    assert (out - want_out).abs().max().item() <= ATTN_TOL[torch.float32]
+    if max(d, dv) <= 128:
+        for sms in (1, 10**6):
+            raw = q.new_empty((b, s, h, dv))
+            raw_lse = torch.empty_like(lse)
+            rc = attn._lib().flash_attention_launch(
+                0, q.data_ptr(), k.data_ptr(), v.data_ptr(), raw.data_ptr(),
+                raw_lse.data_ptr(), b, s, s_kv, h, hk, d, dv, int(causal),
+                window, d ** -0.5, sms,
+                torch.cuda.current_stream(cuda).cuda_stream)
+            torch.cuda.synchronize()
+            assert rc == 0
+            assert torch.equal(raw, _flash_raw(cuda, q, k, v, causal, window,
+                                               sms))
+            assert (raw_lse - want_lse).abs().max().item() <= (
+                ATTN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_flash_mha_gradients_on_card_match_attention_ref(cuda, case):
+    """``flash_mha``'s Function on the card (K6 forward with its lse, the
+    blockwise recompute backward) against autograd of ``attention_ref``
+    on the card, within 1e-4."""
+    from repro_torch.models import flash
+
+    b, s, s_kv, h, hk, d, dv, causal, window = case
+    ins = [_randn(93, b, s, h, d, device=cuda),
+           _randn(94, b, s_kv, hk, d, device=cuda),
+           _randn(95, b, s_kv, hk, dv, device=cuda)]
+    g = _randn(96, b, s, h, dv, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    before = attn.flash_attention.launches
+    out = flash.flash_mha(*leaves, causal=causal, window=window, q_block=128,
+                          kv_block=64)
+    got = torch.autograd.grad(out, leaves, g)
+    assert attn.flash_attention.launches == before + 1  # the forward only
+    leaves = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(
+        flash.attention_ref(*leaves, causal=causal, window=window), leaves, g)
+    torch.cuda.synchronize()
+    for mine, theirs in zip(got, want):
+        assert (mine - theirs).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("b,s,di,n,with_h0", [
+    (1, 128, 8192, 16, False), (2, 300, 256, 16, True), (3, 1, 33, 5, True),
+])
+def test_selective_scan_gradients_on_card_match_plain(cuda, b, s, di, n,
+                                                      with_h0):
+    """``selective_scan``'s Function on the card (K8 forward, the chunked
+    plain recompute backward) against autograd of the plain recurrence
+    on the card, within the scan's tolerances."""
+    ins = _scan_inputs(97, b, s, di, n, cuda)
+    if not with_h0:
+        ins[-1] = None
+    gy = _randn(98, b, s, di, device=cuda)
+    gh = _randn(99, b, di, n, device=cuda)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() if t is not None else None
+                  for t in ins]
+        y, h = fn(*leaves)
+        return torch.autograd.grad((y, h), [t for t in leaves
+                                            if t is not None], (gy, gh))
+
+    before = k8.ssm_scan.launches
+    got = grads(k8.selective_scan)
+    assert k8.ssm_scan.launches == before + 1  # the forward only
+    want = grads(selective_scan_ref)
+    torch.cuda.synchronize()
+    for mine, theirs in zip(got, want):
+        assert torch.allclose(mine, theirs, rtol=1e-4, atol=1e-5)
+
+
+TRAIN_ARCHS = ["qwen3-14b", "starcoder2-7b", "internvl2-76b",
+               "falcon-mamba-7b", "phi3.5-moe-42b-a6.6b",
+               "moonshot-v1-16b-a3b", "zamba2-7b", "gemma3-4b",
+               "minicpm3-4b", "whisper-tiny"]
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_reduced_loss_and_gradients_on_card_match_the_cpu(cuda, name):
+    """Each reduced family's training loss and the gradient of every leaf
+    on the card (K6 and K8 through their Functions, every layer
+    recomputed) against the same on the CPU: the loss within 1e-5
+    relative, each leaf within rtol 1e-3, atol 1e-4 · max|g|, the CPU
+    tests' tolerances against the reference."""
+    from repro_torch import pytree
+
+    cfg = configs.get(name).reduced()
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                        device="cpu")
+    card = convert.from_reference(convert.to_numpy(cpu), device=cuda)
+    rng = np.random.default_rng(12)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, dims=1)}
+    if cfg.frontend:
+        batch["frontend"] = torch.from_numpy((rng.standard_normal(
+            (2, cfg.frontend_len, cfg.d_model)) * 0.02).astype(np.float32))
+
+    def loss_and_grads(params, dev):
+        leaves = pytree.leaves(params)
+        for p in leaves:
+            p.requires_grad_()
+        loss = T.loss_fn(params, {k: v.to(dev) for k, v in batch.items()},
+                         cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    n6, n8 = attn.flash_attention.launches, k8.ssm_scan.launches
+    got_loss, got = loss_and_grads(card, cuda)
+    launched = (attn.flash_attention.launches - n6,
+                k8.ssm_scan.launches - n8)
+    want_loss, want = loss_and_grads(cpu, "cpu")
+    assert launched[0] > 0 or launched[1] > 0  # the kernels ran
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    for (path, _), mine, theirs in zip(pytree.items(cpu), got, want):
+        assert torch.allclose(
+            mine.cpu(), theirs, rtol=1e-3,
+            atol=1e-4 * theirs.abs().max().item()), path
+
+
+def test_train_main_on_card_launches_k6_twice_a_layer_a_step(cuda,
+                                                              tmp_path):
+    """``train.main`` on a reduced qwen3-14b: K6 once a layer in the
+    forward and once more in the recomputed backward, every step; no
+    recovery; the losses those of the CPU within 2e-3. Both resume from
+    one step-0 checkpoint of the card's initial state (a generator on the
+    card draws other weights than one on the CPU)."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.launch import train
+
+    cfg = configs.get("qwen3-14b").reduced()
+    for dev in ("cuda", "cpu"):
+        ckpt.save({"state": train.build_state(cfg, L.FP32, device=cuda),
+                   "data": {"step": 0}}, str(tmp_path / dev), 0)
+    argv = ["--arch", "qwen3-14b", "--reduced", "--steps", "3", "--batch",
+            "2", "--seq", "64", "--ckpt-every", "1000", "--resume"]
+    before = attn.flash_attention.launches
+    run = train.run(argv + ["--ckpt-dir", str(tmp_path / "cuda")])
+    assert attn.flash_attention.launches - before == 3 * 2 * run.cfg.n_layers
+    assert run.recoveries == 0
+    want = train.main(argv + ["--ckpt-dir", str(tmp_path / "cpu"),
+                              "--device", "cpu"])
+    assert np.allclose(run.losses, want, rtol=0, atol=2e-3)
+
+
+def test_kernels_without_a_backward_refuse_grad_on_the_card(cuda):
+    """Each wrapper without an autograd Function raises naming its kernel
+    when a CUDA input requires grad under grad mode, and runs under
+    ``no_grad``."""
+    q = _randn(1, 2, 4, 16, device=cuda).requires_grad_()
+    kc = _randn(2, 2, 8, 2, 16, device=cuda)
+    lens = torch.tensor([3, 8], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="K7"):
+        attn.decode_attention_gqa(q, kc, kc, lens, sm_scale=0.25)
+    with torch.no_grad():
+        attn.decode_attention_gqa(q, kc, kc, lens, sm_scale=0.25)
+    q6 = _randn(3, 1, 8, 2, 16, device=cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="K6"):
+        attn.flash_attention_gqa(q6, q6, q6)
+    x = _randn(4, 128, 16, device=cuda).requires_grad_()
+    w = _randn(5, 2, 16, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="K9"):
+        k9.group_matmul(x, w, torch.zeros(1, dtype=torch.int32, device=cuda))
+    vals = _randn(6, 128, 4, device=cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="K4"):
+        k4.csr_spmv(torch.zeros(128, 4, dtype=torch.int32, device=cuda), vals,
+                    _randn(7, 8, device=cuda))
+    src_val = _randn(8, 16, device=cuda).requires_grad_()
+    idx = torch.arange(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="K3"):
+        k3.fused_stream(idx, src_val, idx, idx, _randn(9, 32, device=cuda))
+    torch.cuda.synchronize()

@@ -36,7 +36,9 @@ the host's microseconds a call), on the same shapes and seeds:
   head dim for q, k and v (``K6_DIGEST_CASES``: qwen3's serve prefill,
   zamba2's D=112, gemma3's D=256 with its window, whisper's encoder and
   one query over 1500 keys), so that two trees run on one card can be
-  shown to give the same bits.
+  shown to give the same bits; where the tree's K6 writes its rows'
+  log-sum-exp on request (``return_lse``), also of the output of that
+  call, which must equal the other.
 
 ``--kernels`` names the kernels to time (default ``K6,K7``). Each case
 is also held against its plain version (``ATTN_ATOL``, ``SCAN_ATOL``,
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import sys
@@ -75,7 +78,13 @@ K6_DIGEST_CASES = [
 
 def k6_digests(kernel) -> dict:
     """SHA-256 (first 16 hex digits) of K6's output bytes at
-    ``K6_DIGEST_CASES``, inputs from seed 16."""
+    ``K6_DIGEST_CASES``, inputs from seed 16; where the tree's K6 can
+    write its rows' log-sum-exp (``return_lse``), also of the output of
+    the call that writes it, under the case's name plus " (lse)"."""
+    digest = lambda t: hashlib.sha256(  # noqa: E731
+        t.cpu().numpy().tobytes()).hexdigest()[:16]
+    has_lse = "return_lse" in inspect.signature(
+        kernel.flash_attention_gqa).parameters
     out = {}
     for name, b, s, s_kv, h, hk, d, causal, window in K6_DIGEST_CASES:
         g = torch.Generator(device="cuda").manual_seed(16)
@@ -83,8 +92,11 @@ def k6_digests(kernel) -> dict:
         k, v = (cs._randn(g, b, s_kv, hk, d) for _ in "kv")
         got = kernel.flash_attention_gqa(q, k, v, causal=causal,
                                          window=window)
-        out[name] = hashlib.sha256(
-            got.cpu().numpy().tobytes()).hexdigest()[:16]
+        out[name] = digest(got)
+        if has_lse:
+            got, _ = kernel.flash_attention_gqa(
+                q, k, v, causal=causal, window=window, return_lse=True)
+            out[name + " (lse)"] = digest(got)
     return out
 
 
