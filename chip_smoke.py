@@ -80,10 +80,11 @@ failure exits non-zero:
    its rows' log-sum-exp at qwen3-14b's heads (B=4, S=1024), gemma3-4b's
    window (S=2048) and minicpm3-4b's 96/64 (its output the same bits
    as without, the lse and ``flash_mha``'s gradients within 1e-4 of the
-   plain loop's and of autograd through ``attention_ref``), and K8's
-   gradients (``selective_scan``'s Function) at falcon-mamba-7b's width
-   (B=1, S=128) within 1e-5 + 1e-4·|plain| of autograd through the plain
-   scan;
+   plain loop's and of autograd through ``attention_ref``; SDPA timed
+   beside it), and ``selective_scan``'s Function at falcon-mamba-7b's
+   width (B=1, S=512, four chunks of the backward): y and h_final
+   against the plain scan, the gradients within 1e-5 + 1e-4·|plain| of
+   autograd through it;
 4. main path — the nine Table-1 programs at ``--scale-mult 8`` through
    ``executor.execute(..., backend="torch")`` on the card, each final
    array bit-identical to the port's sequential oracle, plus one
@@ -194,8 +195,10 @@ failure exits non-zero:
     other kernel; the first step again with ``attention_ref`` in K6's
     place (loss within 1e-5, gradient norm within 1e-4, relative); step
     seconds (the median of steps 2-5), tokens/s, peak GB and the share
-    of the 8·N·T float32 bound; then a reduced qwen3-14b's 10 straight
-    steps against 5 + resume + 5 at rtol 1e-4;
+    of the float32 bound (8·N·T over the weights that enter products,
+    plus the attention's), one step profiled (the products, K6, AdamW,
+    the rest); then a reduced qwen3-14b's 10 straight steps against 5 +
+    resume + 5 at rtol 1e-4;
 13. the script's seconds, the card line, the ``{"kernels": [...]}`` line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -396,10 +399,11 @@ RESUME_RTOL = 1e-4
 # K6's lse and flash_mha's gradients at the training shapes: qwen3's heads
 # at the path's B=4, S=1024; gemma3's window at S=2048; minicpm3's 96/64
 K6T_WINDOW_S, K6T_MLA_S = 2048, 1024
-# K8's gradients at falcon-mamba-7b's width, one sequence of 128; the
-# backward recomputes through the plain scan, so its gradients differ from
-# autograd of the plain scan only where the chunks split the sums
-K8G_B, K8G_S = 1, 128
+# K8's gradients at falcon-mamba-7b's width, one sequence of 512: four
+# chunks of the backward, whose start states come from K8 (three
+# launches), so the gradients differ from autograd of the plain scan by
+# K8's rounding of the carried state and where the chunks split the sums
+K8G_B, K8G_S = 1, 512
 SCAN_GRAD_ATOL, SCAN_GRAD_RTOL = 1e-5, 1e-4
 
 
@@ -1462,12 +1466,17 @@ def check_training_kernels():
     gradients (q, k, v; the autograd Function: K6 forward, the blockwise
     recompute backward) within ``ATTN_ATOL`` of autograd through
     ``attention_ref``; K6 with the lse timed as a whole call beside its
-    bound, without it, the plain loop (with its lse) and the backward.
-    K8 at falcon-mamba-7b's width (B=1, S=128, di=8192, n=16):
-    ``selective_scan``'s gradients (xi, dt, B, C, a_neg; K8 forward, the
-    chunked plain recompute backward) within ``SCAN_GRAD_ATOL +
-    SCAN_GRAD_RTOL·|plain|`` of autograd through ``selective_scan_ref``,
-    the backward timed."""
+    bound, without it, the plain loop (with its lse), the backward, the
+    Function's forward and backward through autograd, and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls;
+    a boolean mask for the window) forward and forward plus backward.
+    K8 at falcon-mamba-7b's width (B=1, S=512, di=8192, n=16; four chunks
+    of the backward): the Function's y and h_final within the scan's
+    tolerances of ``selective_scan_ref``'s, and its gradients (xi, dt, B,
+    C, a_neg; K8 forward, the chunked plain recompute backward from K8's
+    chunk start states) within ``SCAN_GRAD_ATOL + SCAN_GRAD_RTOL·|plain|``
+    of autograd through ``selective_scan_ref``, the backward timed."""
+    import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel
     from repro_torch.kernels.attention.ref import flash_gqa_ref
     from repro_torch.kernels.ssm_scan import kernel as k8
@@ -1511,6 +1520,20 @@ def check_training_kernels():
         grad_err = max(_within(a, w, f"flash_mha's d{n} at {name}")
                        for n, a, w in zip("qkv", got, want))
         del got, want
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        mask = None
+        if window:
+            i = torch.arange(s, device="cuda")
+            mask = (i[:, None] >= i[None, :]) & (i[None, :] > i[:, None]
+                                                 - window)
+        lib = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
+            *x, attn_mask=mask, is_causal=mask is None, enable_gqa=hk != h)
+        lib_err = float((lib(qt, kt, vt).transpose(1, 2) - o).abs().max())
+
+        def lib_grads():
+            leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+            return torch.autograd.grad(lib(*leaves), leaves, dot)
+
         bounds = _flash_bounds(b, s, h, hk, dk, window, dv=dv)
         out[name] = {
             "B": b, "S": s, "H": h, "Hk": hk, "Dk": dk, "Dv": dv,
@@ -1524,21 +1547,34 @@ def check_training_kernels():
             "plain_ms": _time_ms(lambda: flash_gqa_ref(
                 q, k, v, window=window, return_lse=True), 3),
             "backward_ms": _time_ms(lambda: flash.flash_bwd(
-                q, k, v, o, lse, do, True, window), 3)}
-        del q, k, v, do, o, lse, o_plain, o_ref, lse_ref
+                q, k, v, o, lse, do, True, window), 3),
+            "forward_backward_ms": _time_ms(lambda: grads(flash.flash_mha),
+                                            3),
+            "library": "scaled_dot_product_attention"
+                       + (" with a boolean window mask" if window else ""),
+            "library_max_abs_err": lib_err,
+            "library_ms": _time_ms(lambda: lib(qt, kt, vt), REPS, TRIALS),
+            "library_forward_backward_ms": _time_ms(lib_grads, 3)}
+        del q, k, v, do, o, lse, o_plain, o_ref, lse_ref, qt, kt, vt, dot
         torch.cuda.empty_cache()
 
     args = scan_inputs(41, K8G_B, K8G_S, K8_DI, K8_N)[:5]
     gy, gh = _randn(g, K8G_B, K8G_S, K8_DI), _randn(g, K8G_B, K8_DI, K8_N)
 
-    def scan_grads(fn):
+    def scan_grads(fn, outputs=None):
         leaves = [t.clone().requires_grad_() for t in args]
         y, h = fn(*leaves)
+        if outputs is not None:
+            outputs.extend(t.detach() for t in (y, h))
         return torch.autograd.grad((y, h), leaves, (gy, gh))
 
-    got = scan_grads(k8.selective_scan)
-    want = scan_grads(selective_scan_ref)
+    got_out, want_out = [], []
+    got = scan_grads(k8.selective_scan, got_out)
+    want = scan_grads(selective_scan_ref, want_out)
     torch.cuda.synchronize()
+    y_err = _scan_err(got_out[0], want_out[0], "selective_scan's y")
+    h_err = _scan_err(got_out[1], want_out[1], "selective_scan's h_final")
+    del got_out, want_out
     scan_err = 0.0
     for name, a, w in zip(("xi", "dt", "B", "C", "a_neg"), got, want):
         diff = (a - w).abs()
@@ -1549,6 +1585,8 @@ def check_training_kernels():
                 f"above {SCAN_GRAD_ATOL} + {SCAN_GRAD_RTOL}|plain|")
         scan_err = max(scan_err, float(diff.max().item()))
     scan = {"B": K8G_B, "S": K8G_S, "di": K8_DI, "n": K8_N,
+            "backward_chunks": -(-K8G_S // k8.BWD_CHUNK),
+            "max_abs_err": y_err, "h_final_max_abs_err": h_err,
             "grad_max_abs_err": scan_err,
             "tolerance": f"{SCAN_GRAD_ATOL} + {SCAN_GRAD_RTOL}|plain|",
             "backward_ms": _time_ms(lambda: k8.scan_bwd(*args, None, gy, gh),
@@ -2259,15 +2297,33 @@ def _train_argv(ckpt_dir, *extra):
     return ["--arch", TRAIN_ARCH, "--ckpt-dir", ckpt_dir, *extra]
 
 
-def first_step_with_attention_ref(cfg):
-    """The training path's first step (the same seeded parameters and
-    first batch as ``train.run``'s) with ``flash_mha`` replaced by the
-    plain ``attention_ref`` on the card: the loss and the gradient's
-    global norm, and the K6 launches it made (none)."""
+def _train_flops(cfg, b, s) -> dict:
+    """The float32 operations a training step of the dense GQA ``cfg``
+    must do on ``b`` x ``s`` tokens: 8·N·T for the N weights that enter a
+    product (the forward, the forward again where the layer or the CE
+    chunk is recomputed, the two products of the backward; the head, or
+    embed.T when tied, but not the input embedding, a gather), and the
+    attention's own products over the causal pairs: Q·K and P·V in the
+    forward and again in the recompute (4·dk + 4·dv a pair and head), and
+    the backward's Q·K, dV, dP, dQ and dK (6·dk + 4·dv)."""
+    n_mm = cfg.n_params() - (0 if cfg.tie_embeddings
+                             else cfg.vocab * cfg.d_model)
+    hd = cfg.resolved_head_dim
+    heads_pairs = cfg.n_layers * cfg.n_heads * b * s * (s + 1) // 2
+    weights = 8 * n_mm * b * s
+    k6 = heads_pairs * (4 * hd + 4 * hd)
+    backward = heads_pairs * (6 * hd + 4 * hd)
+    return {"product_params": n_mm, "weight_flops": weights,
+            "attention_k6_flops": k6, "attention_backward_flops": backward,
+            "flops": weights + k6 + backward}
+
+
+def _train_inputs(cfg):
+    """The training path's seeded parameters (requiring grad) and first
+    batch on the card, as ``train.run`` draws them."""
     from repro_torch import pytree
     from repro_torch.data.pipeline import DataConfig, ShardedLoader
-    from repro_torch.models import flash, layers as L, transformer as T
-    from repro_torch.optim import adamw
+    from repro_torch.models import layers as L, transformer as T
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(gen, cfg, L.FP32, device="cuda")
@@ -2277,6 +2333,18 @@ def first_step_with_attention_ref(cfg):
     leaves = pytree.leaves(params)
     for p in leaves:
         p.requires_grad_()
+    return params, leaves, batch
+
+
+def first_step_with_attention_ref(cfg, params, leaves, batch):
+    """The training path's first step (``_train_inputs``) with
+    ``flash_mha`` replaced by the plain ``attention_ref`` on the card: the
+    loss and the gradient's global norm, and the K6 launches it made
+    (none)."""
+    from repro_torch import pytree
+    from repro_torch.models import flash, transformer as T
+    from repro_torch.optim import adamw
+
     kernel_path = T.flash_mha
     T.flash_mha = lambda q, k, v, *, causal=True, window=0, **_: (
         flash.attention_ref(q, k, v, causal=causal, window=window))
@@ -2292,6 +2360,72 @@ def first_step_with_attention_ref(cfg):
     return float(loss.detach()), norm, _launch_counts()["k6"] - before
 
 
+def profile_train_step(cfg, params, leaves, batch, flops):
+    """Where a training step's time goes: steps of the training path's
+    arithmetic (``make_train_step``'s, on ``_train_inputs``) with the loss
+    and its gradients and the AdamW update timed apart by CUDA events, the
+    first a warm-up, the second timed, the third under ``torch.profiler``
+    (its kernels: the products, K6, the rest, the most costly); the
+    device's busy share is the traced kernel time over the second step's
+    wall time, and the products' rate their ``flops`` over their device
+    time (``flops``: the weights' and the attention backward's, which
+    cuBLAS runs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    opt = adamw.init_state(params)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=5,
+                                total_steps=TRAIN_STEPS)
+
+    def step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = T.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        ev[1].record()
+        by_id = {id(p): g for p, g in zip(leaves, grads)}
+        del grads
+        for p in leaves:
+            p.requires_grad_(False)
+        adamw.apply_updates(params, pytree.map_leaves(lambda p: by_id[id(p)],
+                                                      params), opt, opt_cfg)
+        ev[2].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for p in leaves:
+            p.requires_grad_(True)
+        return wall, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+    step()  # warm-up
+    wall, grad_ms, adamw_ms = step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_wall, _, _ = step()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    gemm_us = sum(r[1] for r in rows if "gemm" in r[0].lower())
+    k6_us = sum(r[1] for r in rows if "flash_kernel" in r[0])
+    return {
+        "step_s": wall, "traced_step_s": traced_wall,
+        "loss_and_gradients_ms": grad_ms, "adamw_ms": adamw_ms,
+        "kernel_ms": busy_us / 1e3,
+        "device_busy_share": busy_us * 1e-6 / wall if busy_us else None,
+        "kernels": sum(r[2] for r in rows),
+        "products_ms": gemm_us / 1e3,
+        "products_tflop_per_s": (flops / (gemm_us * 1e-6) / 1e12
+                                 if gemm_us else None),
+        "k6_ms": k6_us / 1e3,
+        "other_kernels_ms": (busy_us - gemm_us - k6_us) / 1e3,
+        "top_kernels_ms": [(k[:80], us / 1e3, n) for k, us, n in rows[:10]],
+    }
+
+
 def run_train_path():
     """The training phase: ``train.run`` (the port's ``train.main`` with
     its whole record) on qwen3-14b at full width, ``TRAIN_LAYERS`` of its
@@ -2303,8 +2437,8 @@ def run_train_path():
     ``TRAIN_LOSS_RTOL``, its gradient norm within ``TRAIN_NORM_RTOL``), and
     the resume check on a reduced qwen3-14b (10 straight steps against 5 +
     resume + 5 at ``RESUME_RTOL``). Step seconds are the median of steps
-    2-5, beside the bound 8·N·T / the card's float32 rate (forward,
-    backward and the recomputed forward of the parameters' products)."""
+    2-5, beside the bound ``_train_flops`` / the card's float32 rate, and
+    where one step's time goes (``profile_train_step``)."""
     import shutil
 
     from repro_torch.configs import base as configs
@@ -2337,7 +2471,8 @@ def run_train_path():
         raise AssertionError(f"training path: first loss {losses[0]} not "
                              f"within 3 of ln({cfg.vocab})")
     torch.cuda.empty_cache()
-    ref_loss, ref_norm, ref_k6 = first_step_with_attention_ref(cfg)
+    inputs = _train_inputs(cfg)
+    ref_loss, ref_norm, ref_k6 = first_step_with_attention_ref(cfg, *inputs)
     first = run.metrics[0]
     loss_rel = abs(first["loss"] - ref_loss) / abs(ref_loss)
     norm_rel = abs(first["grad_norm"] - ref_norm) / abs(ref_norm)
@@ -2347,6 +2482,11 @@ def run_train_path():
             f"{first['loss']} vs {ref_loss} ({loss_rel}), grad norm "
             f"{first['grad_norm']} vs {ref_norm} ({norm_rel}), {ref_k6} K6 "
             f"launches in the plain step")
+    torch.cuda.empty_cache()
+    flops = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    breakdown = profile_train_step(
+        cfg, *inputs, flops["weight_flops"] + flops["attention_backward_flops"])
+    del inputs
     torch.cuda.empty_cache()
 
     reduced = ["--reduced", "--batch", "2", "--seq", "64", "--ckpt-every",
@@ -2367,9 +2507,8 @@ def run_train_path():
     step_s = float(np.median(run.step_seconds[1:]))
     n_params = cfg.n_params()
     tokens = TRAIN_B * TRAIN_S
-    flops = 8 * n_params * tokens
     f32 = _f32_flops_per_s()
-    bound_s = flops / f32
+    bound_s = flops["flops"] / f32
     return {
         "arch": cfg.name,
         "layers": f"{TRAIN_LAYERS} of {configs.get(TRAIN_ARCH).n_layers} "
@@ -2385,10 +2524,13 @@ def run_train_path():
         "step_seconds": run.step_seconds,
         "step_s_median_of_2_to_5": step_s,
         "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
-        "flop_bound": {"flops": flops, "basis": "8·N·T: forward, backward "
-                       "and the recomputed forward of the parameters' "
-                       "products", "f32_flops_per_s": f32,
-                       "bound_s": bound_s, "share": bound_s / step_s},
+        "flop_bound": {**flops, "basis": "8·N·T over the weights that "
+                       "enter products (not the input embedding, a gather): "
+                       "forward, recomputed forward and backward; plus the "
+                       "attention's products over the causal pairs",
+                       "f32_flops_per_s": f32, "bound_s": bound_s,
+                       "share": bound_s / step_s},
+        "step_breakdown": breakdown,
         "first_step_against_attention_ref": {
             "loss": first["loss"], "ref_loss": ref_loss,
             "loss_rel_err": loss_rel, "grad_norm": first["grad_norm"],

@@ -22,8 +22,10 @@ too and the loop raises. The step's result is read on the host inside
 the attempt (the train driver turns its metrics into floats), so an
 asynchronous fault surfaces within the step that caused it. The port's
 optimizer updates in place, so a step that fails after its update began
-retries from the latest checkpoint, or, before the first, from the
-partly updated state, as the log says.
+(the step raises ``StateChanged``) retries from the latest checkpoint;
+before the first checkpoint there is no state to go back to, and the loop
+raises rather than apply the step's update twice. A fault before the
+update retries in place, as the reference's loop does.
 """
 
 from __future__ import annotations
@@ -40,6 +42,11 @@ import torch
 from repro_torch.checkpoint import manager as ckpt
 
 log = logging.getLogger("repro_torch.fault")
+
+
+class StateChanged(RuntimeError):
+    """A step failed after it began to change the state in place: only a
+    checkpoint can give back the state it started from."""
 
 
 @dataclasses.dataclass
@@ -130,6 +137,12 @@ class FaultTolerantLoop:
                         # the retried step consumes the right batch and
                         # the stream stays aligned with the step counter
                         batch = next(self.loader)
+                    elif isinstance(e, StateChanged):
+                        raise RuntimeError(
+                            f"step {self.step} failed after it began to "
+                            f"change the state, and no checkpoint holds "
+                            f"the state before it"
+                        ) from e
                     else:
                         log.warning("no checkpoint yet; retrying in place")
             dt = time.monotonic() - t0

@@ -28,14 +28,15 @@ requires grad it runs ``_Scan``, an autograd Function whose forward is
 the kernel (the plain version on the CPU) and whose backward recomputes
 through the plain version (``scan_bwd``) in chunks of ``BWD_CHUNK``
 positions, as the reference's ``jax.checkpoint`` of each chunk does
-(``src/repro/models/ssm.py:135``): first the state at each chunk's start
-without grad, then, from the last chunk back, the chunk's plain
-recurrence under ``enable_grad`` and ``torch.autograd.grad`` with the
-cotangents of its outputs and of its end state. That is autograd of the
-plain version the tests hold against the reference, not a hand-derived
-formula, and its graph holds one chunk, not the ``(B, S, di, n)`` states.
-The backward launches no kernel. It gives gradients for xi, dt, B, C,
-a_neg and h0.
+(``src/repro/models/ssm.py:135``): first the state at each chunk's start,
+by one forward a chunk (the kernel on the card, so one launch for each
+chunk but the last; none where S fits one chunk), then, from the last
+chunk back, the chunk's plain recurrence under ``enable_grad`` and
+``torch.autograd.grad`` with the cotangents of its outputs and of its end
+state. That is autograd of the plain version the tests hold against the
+reference, not a hand-derived formula, and its graph holds one chunk, not
+the ``(B, S, di, n)`` states. It gives gradients for xi, dt, B, C, a_neg
+and h0.
 """
 
 from __future__ import annotations
@@ -155,18 +156,19 @@ class _Scan(torch.autograd.Function):
 def scan_bwd(xi, dt, bmat, cmat, a_neg, h0, gy, gh, chunk=BWD_CHUNK):
     """Gradients of ``selective_scan`` for ``(xi, dt, bmat, cmat, a_neg,
     h0)`` (None for an absent h0) at the cotangents ``gy`` of y and ``gh``
-    of h_final (either may be None): the plain recurrence recomputed chunk
+    of h_final (either may be None): each chunk's start state from the
+    forward (K8 on the card), then the plain recurrence recomputed chunk
     by chunk from the last, each chunk differentiated by autograd."""
     b, s, di = xi.shape
     n = a_neg.shape[1]
     h = (torch.zeros((b, di, n), dtype=torch.float32, device=xi.device)
          if h0 is None else h0.detach().float())
-    starts = []
+    starts = [h]
     with torch.no_grad():
-        for c0 in range(0, s, chunk):
+        for c0 in range(0, s - chunk, chunk):
+            _, h = _forward(*(t[:, c0:c0 + chunk].detach() for t in
+                              (xi, dt, bmat, cmat)), a_neg.detach(), h)
             starts.append(h)
-            _, h = selective_scan_ref(*(t[:, c0:c0 + chunk] for t in
-                                        (xi, dt, bmat, cmat)), a_neg, h)
     grads = [torch.zeros_like(t) for t in (xi, dt, bmat, cmat)]
     g_a = torch.zeros_like(a_neg)
     g_h = (torch.zeros((b, di, n), dtype=torch.float32, device=xi.device)

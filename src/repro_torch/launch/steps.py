@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.fault import StateChanged
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -26,7 +27,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     parameter by ``torch.autograd.grad``, then one AdamW step
     (``adamw.apply_updates``, in place). ``metrics`` holds ``loss``,
     ``grad_norm`` and ``lr`` as 0-d tensors. The parameters require grad
-    only while the loss and its gradient are computed."""
+    only while the loss and its gradient are computed. A fault in the
+    update raises ``fault.StateChanged``: the parameters and moments may
+    be partly updated."""
     def train_step(params, opt_state, batch):
         leaves = pytree.leaves(params)
         try:
@@ -40,9 +43,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                 p.requires_grad_(False)
         by_id = {id(p): g for p, g in zip(leaves, grads)}
         grads = pytree.map_leaves(lambda p: by_id[id(p)], params)
-        params2, opt2, metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg
-        )
+        try:
+            params2, opt2, metrics = adamw.apply_updates(
+                params, grads, opt_state, opt_cfg
+            )
+        except Exception as e:
+            raise StateChanged("the AdamW update failed") from e
         metrics["loss"] = loss.detach()
         return params2, opt2, metrics
 

@@ -37,7 +37,8 @@ import torch
 from repro_torch.configs import base as configs
 from repro_torch.data.pipeline import DataConfig, ShardedLoader
 from repro_torch.device import resolve_device
-from repro_torch.distributed.fault import FaultConfig, FaultTolerantLoop
+from repro_torch.distributed.fault import (FaultConfig, FaultTolerantLoop,
+                                          StateChanged)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -125,7 +126,10 @@ def run(argv=None) -> TrainRun:
                 (args.batch, cfg.frontend_len, cfg.d_model),
                 dtype=torch.float32, device=dev)
         params, opt, metrics = step(state["params"], state["opt"], b)
-        metrics = {k: float(v) for k, v in metrics.items()}  # waits
+        try:
+            metrics = {k: float(v) for k, v in metrics.items()}  # waits
+        except Exception as e:  # a fault of the step, the update included
+            raise StateChanged("the step's metrics could not be read") from e
         seconds.append(time.perf_counter() - t0)
         return {"params": params, "opt": opt}, metrics
 

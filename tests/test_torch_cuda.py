@@ -1602,7 +1602,8 @@ def test_selective_scan_gradients_on_card_match_plain(cuda, b, s, di, n,
 
     before = k8.ssm_scan.launches
     got = grads(k8.selective_scan)
-    assert k8.ssm_scan.launches == before + 1  # the forward only
+    # the forward, then the backward's start state of each chunk but the first
+    assert k8.ssm_scan.launches == before + 1 + (s - 1) // k8.BWD_CHUNK
     want = grads(selective_scan_ref)
     torch.cuda.synchronize()
     for mine, theirs in zip(got, want):

@@ -12,7 +12,9 @@ on the CPU.
   ``rtol=1e-4`` (``tests/test_system.py``);
 - the fault-tolerant loop: a transient fault is retried and counted, a
   persistent one raises the reference's ``RuntimeError``, a fault after a
-  checkpoint rewinds the state and the data;
+  checkpoint rewinds the state and the data; a fault after the in-place
+  update began restores the checkpoint, and without one raises instead
+  of applying the update twice;
 - the shape table; the host-only modules import no torch.
 """
 
@@ -33,7 +35,8 @@ from repro.models import layers as ref_L
 from repro_torch import pytree
 from repro_torch.configs import base as configs
 from repro_torch.data.pipeline import DataConfig, ShardedLoader
-from repro_torch.distributed.fault import FaultConfig, FaultTolerantLoop
+from repro_torch.distributed.fault import (FaultConfig, FaultTolerantLoop,
+                                          StateChanged)
 from repro_torch.launch import shapes, steps, train
 from repro_torch.models import layers as L
 from repro_torch.optim import adamw
@@ -161,6 +164,54 @@ def test_loop_raises_on_a_persistent_fault(tmp_path):
     with pytest.raises(RuntimeError, match="step 0 failed after 2 retries"):
         loop.run(3)
     assert loop.recoveries == 3
+
+
+def test_loop_does_not_retry_a_changed_state_without_a_checkpoint(tmp_path):
+    """A step that fails after it changed the state in place, before any
+    checkpoint, is not retried on the changed state: the loop raises and
+    the update stands once."""
+    def step_fn(state, batch):
+        state["w"].add_(1.0)
+        raise StateChanged("the update failed")
+
+    loop = _loop(tmp_path, step_fn, every=100)
+    with pytest.raises(RuntimeError, match="step 0 failed after it began"):
+        loop.run(3)
+    assert loop.recoveries == 1
+    assert loop.state["w"].tolist() == [1.0, 1.0, 1.0]
+
+
+def _update_failing_once(monkeypatch, at_call):
+    """``adamw.apply_updates`` that fails once, on call ``at_call``, after
+    it has updated the parameters and moments in place."""
+    update, calls = adamw.apply_updates, []
+
+    def failing(*args, **kwargs):
+        out = update(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == at_call:
+            raise RuntimeError("fault after the update")
+        return out
+
+    monkeypatch.setattr(adamw, "apply_updates", failing)
+
+
+def test_train_fault_after_the_update_restores_the_checkpoint(
+        tmp_path, monkeypatch):
+    """The train driver on the CPU, its AdamW update failing after it ran
+    at step 3: the loop restores the step-2 checkpoint and the run ends
+    where an unbroken one does; without a checkpoint it raises."""
+    argv = ["--arch", "qwen3-14b", "--reduced", "--steps", "6", "--batch",
+            "2", "--seq", "16", "--device", "cpu", "--ckpt-every", "2"]
+    want = train.run(argv + ["--ckpt-dir", str(tmp_path / "straight")])
+    _update_failing_once(monkeypatch, at_call=4)
+    got = train.run(argv + ["--ckpt-dir", str(tmp_path / "faulted")])
+    assert got.recoveries == 1
+    assert got.losses[-4:] == want.losses[-4:]
+    monkeypatch.undo()
+    _update_failing_once(monkeypatch, at_call=2)
+    with pytest.raises(RuntimeError, match="step 1 failed after it began"):
+        train.run(argv[:-1] + ["100", "--ckpt-dir", str(tmp_path / "none")])
 
 
 def test_default_device_raises_without_a_card():
