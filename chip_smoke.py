@@ -196,10 +196,27 @@ failure exits non-zero:
     place (loss within 1e-5, gradient norm within 1e-4, relative); step
     seconds (the median of steps 2-5), tokens/s, peak GB and the share
     of the float32 bound (8·N·T over the weights that enter products,
-    plus the attention's), one step profiled (the products, K6, AdamW,
+    less the recompute of each layer's last product, which the checkpoint
+    never runs, plus the attention's), one step profiled (the products, K6, AdamW,
     the rest); then a reduced qwen3-14b's 10 straight steps against 5 +
     resume + 5 at rtol 1e-4;
-13. the script's seconds, the card line, the ``{"kernels": [...]}`` line, and last
+13. distribution and the account — (a) the training path's model
+    (qwen3-14b at full width, **4 of its 40 layers** as there, B=4,
+    S=1024, float32) through 3 steps of ``make_train_step`` in the
+    fault-tolerant loop, first on plain tensors, then on DTensors over a
+    (1, 1) ``("data", "model")`` mesh under NCCL with a world of 1
+    (params, moments and batches distributed by ``partition``, the mesh
+    context and the layer-boundary sharding set): losses and gradient
+    norms within 1e-6 relative, 8 K6 launches a step, each on local
+    shards, no recovery, step seconds and peak GB beside the unsharded
+    run's; (b) the same step through the dry run's account on a fake (1,
+    1) mesh: dot FLOPs within 2% of ``_train_flops``, peak bytes within
+    10% of (a)'s ``max_memory_allocated``, the compute term at the card's
+    float32 rate over (a)'s step; (c) ``run_cell`` of qwen3-14b
+    ``train_4k`` and falcon-mamba-7b ``long_500k`` on the 16x16 mesh (fake,
+    256 ranks): per-device peak GB against the card's, the three terms and
+    the dominant one;
+14. the script's seconds, the card line, the ``{"kernels": [...]}`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where no CUDA device is present, and
@@ -392,6 +409,23 @@ TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = (
 # over 2.9 B squares; K6 differs from the plain softmax by ~1e-6 a row
 # (3xTF32), so each moves by far less than these bounds
 TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+# the distribution phase: the training path's model and batch, 3 steps of
+# make_train_step on DTensors over a (1, 1) ("data", "model") mesh (NCCL,
+# world 1) against the same steps on plain tensors. Every shard is the
+# whole tensor, so the two compute the same products in the same order;
+# the embedding's gradient sums with atomics on the card unsharded (an
+# index) and in a sort sharded (F.embedding), so they may differ by
+# rounding, far under this bound
+DIST_STEPS, DIST_RTOL = 3, 1e-6
+# the dry run's account of the same step against the card: its dot FLOPs
+# against _train_flops (the plain flash loop computes every block pair, 4
+# of 4 at S=1024 in the forward and its recompute, 3 of 4 in the backward,
+# against the causal pairs: about 0.8% more), its peak bytes against
+# torch.cuda.max_memory_allocated
+DIST_FLOPS_RTOL, DIST_PEAK_RTOL = 0.02, 0.10
+# one production cell of each kind the account covers on the card's
+# machine: a train cell on the 16x16 mesh and a long-context decode
+DIST_CELLS = (("qwen3-14b", "train_4k"), ("falcon-mamba-7b", "long_500k"))
 # 10 straight steps against 5 + resume + 5 on the card: the reference's
 # tolerance (tests/test_system.py); the embedding's backward sums with
 # atomics on the card, so the two runs agree to rounding, not bit for bit
@@ -2302,18 +2336,23 @@ def _train_flops(cfg, b, s) -> dict:
     must do on ``b`` x ``s`` tokens: 8·N·T for the N weights that enter a
     product (the forward, the forward again where the layer or the CE
     chunk is recomputed, the two products of the backward; the head, or
-    embed.T when tied, but not the input embedding, a gather), and the
-    attention's own products over the causal pairs: Q·K and P·V in the
-    forward and again in the recompute (4·dk + 4·dv a pair and head), and
-    the backward's Q·K, dV, dP, dQ and dK (6·dk + 4·dv)."""
+    embed.T when tied, but not the input embedding, a gather), less the
+    recompute of each layer's last product (the MLP's w_out:
+    ``torch.utils.checkpoint`` stops a layer's recompute once every tensor
+    its backward saved is back, and nothing saves that product's output),
+    and the attention's own products over the causal pairs: Q·K and P·V in
+    the forward and again in the recompute (4·dk + 4·dv a pair and head),
+    and the backward's Q·K, dV, dP, dQ and dK (6·dk + 4·dv)."""
     n_mm = cfg.n_params() - (0 if cfg.tie_embeddings
                              else cfg.vocab * cfg.d_model)
     hd = cfg.resolved_head_dim
     heads_pairs = cfg.n_layers * cfg.n_heads * b * s * (s + 1) // 2
-    weights = 8 * n_mm * b * s
+    skipped = 2 * cfg.n_layers * cfg.d_ff * cfg.d_model * b * s
+    weights = 8 * n_mm * b * s - skipped
     k6 = heads_pairs * (4 * hd + 4 * hd)
     backward = heads_pairs * (6 * hd + 4 * hd)
     return {"product_params": n_mm, "weight_flops": weights,
+            "recompute_not_run_flops": skipped,
             "attention_k6_flops": k6, "attention_backward_flops": backward,
             "flops": weights + k6 + backward}
 
@@ -2526,8 +2565,10 @@ def run_train_path():
         "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
         "flop_bound": {**flops, "basis": "8·N·T over the weights that "
                        "enter products (not the input embedding, a gather): "
-                       "forward, recomputed forward and backward; plus the "
-                       "attention's products over the causal pairs",
+                       "forward, recomputed forward (less each layer's "
+                       "last product, whose recompute the checkpoint stops "
+                       "before) and backward; plus the attention's products "
+                       "over the causal pairs",
                        "f32_flops_per_s": f32, "bound_s": bound_s,
                        "share": bound_s / step_s},
         "step_breakdown": breakdown,
@@ -2538,6 +2579,226 @@ def run_train_path():
         "resume": {"arch": TRAIN_ARCH + " reduced", "straight": straight,
                    "resumed": resumed, "max_rel_err": resume_rel},
         "host_s": host_s, "card": _card_line(),
+    }
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_run(cfg, mesh=None):
+    """``DIST_STEPS`` steps of ``make_train_step`` through the
+    fault-tolerant loop from the training path's seeded state and batches
+    (``train.run``'s), on plain tensors or, with ``mesh``, on DTensors
+    distributed by ``partition`` with the mesh context and the
+    layer-boundary sharding set (the loop given the state's shardings).
+    Returns the metrics, step seconds, peak bytes, K6-K9 launches, K6's
+    calls on local shards and the loop's recoveries."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.fault import FaultConfig, FaultTolerantLoop
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import flash, layers as L, shardctx
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train.build_state(cfg, L.FP32, device="cuda")
+    shardings = None
+    if mesh is not None:
+        shardctx.set_mesh_ctx(mesh, ("data",))
+        T.set_activation_sharding(partition.P(("data",), "model", None))
+        specs = partition.validate_divisibility(
+            partition.param_specs(state["params"]), state["params"], mesh)
+        specs = {"params": specs,
+                 "opt": {"m": specs, "v": specs, "step": partition.P()}}
+        state = partition.distribute(state, specs, mesh)
+        shardings = partition.shardings_of(specs, mesh)
+    bspec = None if mesh is None else partition.batch_spec(mesh)
+    step = steps_lib.make_train_step(cfg, adamw.AdamWConfig(), L.FP32)
+    seconds = []
+
+    def step_fn(st, batch):
+        t0 = time.perf_counter()
+        b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        if bspec is not None:
+            b = partition.distribute(b, bspec, mesh)
+        params, opt, m = step(st["params"], st["opt"], b)
+        m = {k: float(v) for k, v in m.items()}
+        seconds.append(time.perf_counter() - t0)
+        return {"params": params, "opt": opt}, m
+
+    loader = ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                      global_batch=TRAIN_B))
+    _zero_launch_counts()
+    flash._flash_sharded.calls = 0
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            loop = FaultTolerantLoop(
+                step_fn, state, loader,
+                FaultConfig(checkpoint_dir=d,
+                            checkpoint_every=DIST_STEPS + 1),
+                state_shardings=shardings)
+            metrics = loop.run(DIST_STEPS)
+        torch.cuda.synchronize()
+        sharded_leaves = sum(type(x).__name__ == "DTensor"
+                             for x in _leaves(loop.state))
+        return {"metrics": metrics, "step_seconds": seconds,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "launches": _launch_counts(),
+                "k6_local_shard_calls": flash._flash_sharded.calls,
+                "dtensor_leaves": sharded_leaves,
+                "recoveries": loop.recoveries}
+    finally:
+        shardctx.clear_mesh_ctx()
+        T.set_activation_sharding(None)
+        del state
+        torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    from repro_torch import pytree
+    return pytree.leaves(tree)
+
+
+def run_distribution_path():
+    """The distribution-and-account phase.
+
+    (a) The training path's model (qwen3-14b at full width, 4 of its 40
+    layers, B=4, S=1024, float32) through ``DIST_STEPS`` steps of
+    ``make_train_step`` unsharded, then on a (1, 1) ``("data", "model")``
+    mesh under NCCL with a world of 1 (params, moments and batches
+    distributed by ``partition``, ``set_mesh_ctx`` and the activation
+    sharding set): losses and gradient norms within ``DIST_RTOL``, 8 K6
+    launches a step, each on local shards, no recovery; step seconds and
+    peak GB beside the unsharded run's. The process group is destroyed
+    before (b).
+    (b) The same step through the dry run's account (``lower_cell`` on a
+    fake (1, 1) mesh, float32): its dot FLOPs within ``DIST_FLOPS_RTOL``
+    of ``_train_flops``, its peak bytes within ``DIST_PEAK_RTOL`` of (a)'s
+    measured peak, and its compute term at the card's float32 rate against
+    (a)'s measured step (a ratio, no limit).
+    (c) ``DIST_CELLS`` through ``run_cell`` on the 16x16 production mesh
+    (fake, 256 ranks): per-device peak GB against the card's memory, the
+    three roofline terms and the dominant one."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import base as configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import layers as L
+
+    cfg = dc.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    plain = _dist_run(cfg)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+        sharded = _dist_run(cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    pairs = [(a[k], b[k]) for a, b in zip(plain["metrics"],
+                                          sharded["metrics"])
+             for k in ("loss", "grad_norm")]
+    rel = max(abs(a - b) / abs(a) for a, b in pairs)
+    want = {"k6": 2 * TRAIN_LAYERS * DIST_STEPS, "k7": 0, "k8": 0, "k9": 0}
+    for run in (plain, sharded):
+        if run["launches"] != want or run["recoveries"]:
+            raise AssertionError(f"distribution phase: launches "
+                                 f"{run['launches']} (expected {want}), "
+                                 f"{run['recoveries']} recoveries")
+    if (sharded["k6_local_shard_calls"] != want["k6"]
+            or not sharded["dtensor_leaves"] or plain["dtensor_leaves"]):
+        raise AssertionError(f"distribution phase: {sharded['k6_local_shard_calls']} "
+                             f"K6 calls on local shards, "
+                             f"{sharded['dtensor_leaves']} DTensor leaves")
+    if not all(math.isfinite(a) for a, _ in pairs) or rel > DIST_RTOL:
+        raise AssertionError(f"distribution phase: sharded steps {pairs} "
+                             f"differ by {rel} > {DIST_RTOL}")
+    step_s = float(np.median(sharded["step_seconds"][1:]))
+    plain_step_s = float(np.median(plain["step_seconds"][1:]))
+
+    # (b) the account of the same step, on a fake (1, 1) mesh
+    shape = ShapeSpec("train_b4_s1024", TRAIN_S, TRAIN_B, "train")
+    with mesh_lib.fake_world(1):
+        acct = dryrun.lower_cell(cfg, shape, mesh_lib.make_mesh(
+            (1, 1), ("data", "model"), "cpu"), dt=L.FP32)
+    flops = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    dot = acct["roofline"]["flops_per_device"]
+    flops_rel = (dot - flops["flops"]) / flops["flops"]
+    peak_acct = acct["memory"]["peak_bytes_per_device_est"]
+    peak_rel = (peak_acct - sharded["peak_bytes"]) / sharded["peak_bytes"]
+    compute_s = dot / _f32_flops_per_s()
+    if abs(flops_rel) > DIST_FLOPS_RTOL or abs(peak_rel) > DIST_PEAK_RTOL:
+        raise AssertionError(
+            f"distribution phase: the account's dot FLOPs {dot} against "
+            f"{flops['flops']} ({flops_rel}), its peak {peak_acct} against "
+            f"the card's {sharded['peak_bytes']} ({peak_rel})")
+
+    # (c) production cells on the 16x16 mesh
+    cells = {}
+    for arch, shape_name in DIST_CELLS:
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(arch, shape_name, False,
+                              os.path.join(ROOT, "build", "dryrun"))
+        if "error" in res or "skipped" in res:
+            raise AssertionError(f"dry run {arch} {shape_name}: "
+                                 f"{dryrun.status(res)}")
+        r = res["roofline"]
+        cells[f"{arch} {shape_name} 16x16"] = {
+            "peak_gb_per_device":
+                res["memory"]["peak_bytes_per_device_est"] / 1e9,
+            "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9,
+            "state_gb_per_device":
+                res["memory"]["argument_size_in_bytes"] / 1e9,
+            **{k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                                 "dominant", "flops_per_device",
+                                 "bytes_per_device",
+                                 "collective_bytes_per_device",
+                                 "collective_per_op",
+                                 "useful_flops_ratio")},
+            "account_s": time.perf_counter() - t0}
+    return {
+        "arch": cfg.name, "layers": TRAIN_LAYERS, "batch": TRAIN_B,
+        "seq": TRAIN_S, "steps": DIST_STEPS, "mesh": "1x1 (NCCL, world 1)",
+        "losses": [m["loss"] for m in sharded["metrics"]],
+        "grad_norms": [m["grad_norm"] for m in sharded["metrics"]],
+        "max_rel_err": rel, "rtol": DIST_RTOL,
+        "k6_launches_per_step": sharded["launches"]["k6"] / DIST_STEPS,
+        "k6_local_shard_calls": sharded["k6_local_shard_calls"],
+        "dtensor_leaves": sharded["dtensor_leaves"],
+        "recoveries": sharded["recoveries"],
+        "step_s": step_s, "plain_step_s": plain_step_s,
+        "step_seconds": sharded["step_seconds"],
+        "plain_step_seconds": plain["step_seconds"],
+        "peak_gb": sharded["peak_bytes"] / 1e9,
+        "plain_peak_gb": plain["peak_bytes"] / 1e9,
+        "account": {
+            "dot_flops": dot, "train_flops": flops["flops"],
+            "dot_flops_rel_diff": flops_rel,
+            "attention_blocks_note": "the plain flash loop computes all 4 "
+                                     "block pairs of the forward (and its "
+                                     "recompute) where the causal bound "
+                                     "counts S(S+1)/2 pairs, and the plain "
+                                     "backward 3 of 4",
+            "peak_gb": peak_acct / 1e9, "peak_rel_diff": peak_rel,
+            "state_gb": acct["memory"]["argument_size_in_bytes"] / 1e9,
+            "bytes": acct["roofline"]["bytes_per_device"],
+            "compute_s_at_f32_rate": compute_s,
+            "compute_s_over_step_s": compute_s / step_s,
+            "account_s": acct["setup_s"] + acct["run_s"]},
+        "production_cells": cells,
+        "card": _card_line(),
     }
 
 
@@ -3366,7 +3627,14 @@ def main() -> int:
     tr = run_train_path()
     print("training path:", json.dumps(tr), flush=True)
 
-    # 13. result lines
+    # 13. distribution and the account: the sharded step on the card
+    # (K6 on local shards), its account, and two production cells
+    t0 = time.perf_counter()
+    ds = run_distribution_path()
+    ds["host_s"] = time.perf_counter() - t0
+    print("distribution path:", json.dumps(ds), flush=True)
+
+    # 14. result lines
     big = waves["kernel_phase"]
     wave_entry = {
         "name": "wave_loop", "route": "cuda",
@@ -3484,7 +3752,10 @@ def main() -> int:
                                              "teacher_forced_without_enc_out",
                                              "serve")},
                               "training (forward and recomputed backward)":
-                                  tr["launches"]["k6"]},
+                                  tr["launches"]["k6"],
+                              "distribution (sharded step, on local "
+                              "shards)": ds["k6_local_shard_calls"]},
+        "sharded_step_max_rel_err": ds["max_rel_err"],
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
                      "version (float32 inputs, products in 3xTF32 on the "
                      "tensor cores; the sum order differs)",

@@ -30,7 +30,12 @@ host: the linter (``analysis.lint``), the DSE sweep service and its
 calibration (``dse``), and the sweep summaries (``launch.analysis``);
 and the training path (``launch.train``: the loss, gradients through
 the flash attention and selective-scan kernels by autograd Functions,
-``optim``, ``data``, ``checkpoint``, ``distributed.fault``).
+``optim``, ``data``, ``checkpoint``, ``distributed.fault``); and
+distribution on DTensor (``distributed.partition``, ``distributed.elastic``,
+``models.shardctx``, ``launch.mesh``, sharded checkpoints) with the dry
+run's cost account (``launch.dryrun``, ``launch.cost`` and the roofline
+half of ``launch.analysis``): every module of the JAX package has its
+counterpart.
 Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU, as the tests do.
 """

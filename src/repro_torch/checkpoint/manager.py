@@ -19,6 +19,16 @@ serializes on a background thread. The snapshot is a copy: the port's
 optimizer updates its tensors in place (``optim.adamw``), and a CPU
 tensor's ``numpy()`` would share their storage with the thread still
 writing them.
+
+Sharded state: a DTensor leaf (duck-typed, ``full_tensor``) is gathered
+whole on every rank, on the caller's thread, before anything is written
+(so no collective ever runs on the writer thread); rank 0 alone writes,
+and the ranks meet at a barrier once the checkpoint is committed (at the
+end of ``save``; in ``AsyncCheckpointer.wait``). The files are the same
+as an unsharded state's, so a checkpoint crosses between meshes, device
+counts and the two packages. ``restore(..., shardings=)`` distributes
+each restored array onto the current mesh (``partition.Sharding``s, the
+reference's ``NamedSharding``s).
 """
 
 from __future__ import annotations
@@ -35,7 +45,10 @@ from repro_torch import pytree
 
 
 def _host(leaf, copy: bool = False) -> np.ndarray:
-    """``leaf`` as a host array (a copy where ``copy``)."""
+    """``leaf`` as a host array (a copy where ``copy``); a DTensor is
+    gathered whole first (a collective)."""
+    if hasattr(leaf, "full_tensor"):  # a DTensor
+        leaf = leaf.full_tensor()
     if hasattr(leaf, "detach"):  # a torch tensor, on any device
         on_host = leaf.device.type == "cpu"
         leaf = leaf.detach().cpu().numpy()  # off the host, already a copy
@@ -47,15 +60,43 @@ def _flatten(tree, copy: bool = False) -> dict[str, np.ndarray]:
     return {key: _host(leaf, copy) for key, leaf in pytree.items(tree)}
 
 
+def _sharded(tree) -> bool:
+    """Whether ``tree`` holds a DTensor: its save is a collective."""
+    return any(hasattr(leaf, "full_tensor") for _, leaf in pytree.items(tree))
+
+
+def _rank() -> int:
+    import torch.distributed as dist  # only reached for a sharded state
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save(tree, directory: str, step: int) -> str:
-    """Atomic synchronous save. Returns the committed path."""
+    """Atomic synchronous save. Returns the committed path. A sharded
+    tree is gathered on every rank, written by rank 0, and every rank
+    returns once it is committed."""
+    if _sharded(tree):
+        flat = _flatten(tree)
+        if _rank() == 0:
+            _write(flat, directory, step)
+        _barrier()
+        return os.path.join(directory, f"step_{step:08d}")
+    return _write(_flatten(tree), directory, step)
+
+
+def _write(flat: dict, directory: str, step: int) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for key, arr in _flatten(tree).items():
+    for key, arr in flat.items():
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"][key] = {
@@ -84,10 +125,13 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(like_tree, directory: str, step: Optional[int] = None,
-            place: Optional[Callable] = None):
+            place: Optional[Callable] = None, shardings=None):
     """Restore into the structure of ``like_tree``; returns ``(tree,
     step)``. Each leaf is the saved array, or ``place(array, like_leaf)``
-    where ``place`` is given."""
+    where ``place`` is given. ``shardings`` (a tree of ``like_tree``'s
+    structure holding ``partition.Sharding``s; None at a subtree keeps
+    its leaves host arrays) re-shards onto the current mesh: elastic
+    across device counts."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -99,7 +143,19 @@ def restore(like_tree, directory: str, step: Optional[int] = None,
     for key, like in pytree.items(like_tree):
         arr = np.load(os.path.join(path, manifest["leaves"][key]["file"]))
         flat[key] = arr if place is None else place(arr, like)
-    return _unflatten(like_tree, flat), step
+    tree = _unflatten(like_tree, flat)
+    if shardings is not None:
+        tree = _reshard(tree, shardings)
+    return tree, step
+
+
+def _reshard(tree, shardings):
+    if shardings is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _reshard(v, shardings[k]) for k, v in tree.items()}
+    from repro_torch.distributed import partition
+    return partition.place(tree, shardings)
 
 
 def _unflatten(like_tree, flat: dict, prefix: str = ""):
@@ -118,14 +174,18 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sync = False  # the outstanding save was a sharded state's
 
     def save(self, tree, step: int):
         self.wait()  # one outstanding save at a time
         host_tree = _unflatten(tree, _flatten(tree, copy=True))  # snapshot
+        self._sync = _sharded(tree)
+        if self._sync and _rank() != 0:
+            return  # rank 0 writes; wait() meets it at the barrier
 
         def work():
             try:
-                save(host_tree, self.directory, step)
+                _write(_flatten(host_tree), self.directory, step)
                 self._gc()
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
@@ -137,6 +197,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sync:
+            self._sync = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

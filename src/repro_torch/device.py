@@ -5,7 +5,8 @@ asks for the CPU.
 ``device=`` keyword. ``"cuda"`` is the default everywhere and raises
 ``RuntimeError`` when no card is present: nothing switches to the CPU by
 itself. ``"cpu"`` runs the kernels' plain torch versions and is meant for
-tests. ``refuse_grad`` is the one guard every kernel wrapper without a
+tests; ``"meta"`` runs them on shapes alone, for the dry run's account
+(``launch/dryrun.py``). ``refuse_grad`` is the one guard every kernel wrapper without a
 backward calls before it launches.
 """
 
@@ -19,7 +20,7 @@ import torch
 def resolve_device(device, what: str = "repro_torch") -> torch.device:
     """``device`` as a ``torch.device``; raises ``RuntimeError`` for a
     CUDA device when no card is present (never falls back to the CPU),
-    and ``ValueError`` for any device other than CUDA or the CPU.
+    and ``ValueError`` for any device other than CUDA, the CPU or meta.
     ``what`` names the caller in the message."""
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -29,7 +30,7 @@ def resolve_device(device, what: str = "repro_torch") -> torch.device:
                 "available (device='cpu' runs the plain torch version and "
                 "is meant for tests)"
             )
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"{what}: unsupported device {dev}")
     return dev
 

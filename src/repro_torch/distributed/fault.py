@@ -1,8 +1,7 @@
 """Fault tolerance: checkpointed restart loop + straggler watchdog.
 
 The port of ``FaultConfig`` and ``FaultTolerantLoop`` from
-``src/repro/distributed/fault.py`` (its elastic re-sharding and the
-partitioner are ROADMAP item 13c). The loop wraps the train step:
+``src/repro/distributed/fault.py``. The loop wraps the train step:
 
   * periodic async checkpoints (``checkpoint/manager.py``) with atomic
     commit and retention;
@@ -26,6 +25,13 @@ optimizer updates in place, so a step that fails after its update began
 before the first checkpoint there is no state to go back to, and the loop
 raises rather than apply the step's update twice. A fault before the
 update retries in place, as the reference's loop does.
+
+A sharded state (DTensor leaves) is checkpointed whole, by rank 0
+(``checkpoint.manager``). With ``state_shardings`` (a tree of
+``partition.Sharding``s of the state's structure) a restore distributes
+the checkpoint onto the current mesh and replaces the state's tensors,
+as the reference's ``device_put`` does; without it, each restored array
+is copied into its tensor in place (a DTensor's local shard).
 """
 
 from __future__ import annotations
@@ -38,8 +44,10 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import manager as ckpt
+from repro_torch.distributed import partition
 
 log = logging.getLogger("repro_torch.fault")
 
@@ -61,15 +69,19 @@ class FaultConfig:
 
 
 def _place(arr, like):
-    """A restored array into ``like``: copied into a tensor in place,
-    else returned as it is."""
+    """A restored array into ``like``: copied into a tensor (a DTensor's
+    local shard) in place, else returned as it is."""
     if not isinstance(like, torch.Tensor):
         return arr
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf of shape {arr.shape} restored "
                          f"into a tensor of shape {tuple(like.shape)}")
+    src = torch.from_numpy(arr)
+    if isinstance(like, DTensor):
+        src = partition.place(src, partition.Sharding(like.device_mesh,
+                                                      like.placements))
     with torch.no_grad():
-        like.copy_(torch.from_numpy(arr))
+        like.copy_(src)
     return like
 
 
@@ -80,11 +92,13 @@ class FaultTolerantLoop:
         state,  # nested dict: params/opt
         loader,  # data.pipeline.ShardedLoader
         cfg: FaultConfig,
+        state_shardings=None,
     ):
         self.step_fn = step_fn
         self.state = state
         self.loader = loader
         self.cfg = cfg
+        self.state_shardings = state_shardings
         self.saver = ckpt.AsyncCheckpointer(cfg.checkpoint_dir)
         self.step = 0
         self.ewma: Optional[float] = None
@@ -105,8 +119,13 @@ class FaultTolerantLoop:
         if ckpt.latest_step(self.cfg.checkpoint_dir) is None:
             return False
         like = {"state": self.state, "data": self.loader.state()}
-        restored, step = ckpt.restore(like, self.cfg.checkpoint_dir,
-                                      place=_place)
+        if self.state_shardings is None:
+            restored, step = ckpt.restore(like, self.cfg.checkpoint_dir,
+                                          place=_place)
+        else:
+            restored, step = ckpt.restore(
+                like, self.cfg.checkpoint_dir,
+                shardings={"state": self.state_shardings, "data": None})
         self.state = restored["state"]
         self.loader.restore(restored["data"])
         self.step = step

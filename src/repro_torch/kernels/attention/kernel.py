@@ -26,8 +26,9 @@ the plain versions compute the full scores.
 On a CUDA tensor each entry launches its kernel on the current stream
 (``repro_torch.device.launch``), built from source at first use
 (``repro_torch._build``), and raises on any build or launch failure.
-Only tensors on the CPU, which the tests pass, go to the plain versions
-in ``ref.py``. Neither kernel has a backward here: on a CUDA tensor that
+Only tensors on the CPU, which the tests pass, and on ``meta``, which
+the dry run's account passes (``launch/dryrun.py``), go to the plain
+versions in ``ref.py``. Neither kernel has a backward here: on a CUDA tensor that
 requires grad under grad mode each entry raises (``device.refuse_grad``);
 training reaches K6 through ``models.flash.flash_mha``, an autograd
 Function whose forward launches it with grad off and asks for the rows'
@@ -93,12 +94,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def _device(what, *tensors) -> torch.device:
-    """The one device of ``tensors``: the CPU or a CUDA device."""
+    """The one device of ``tensors``: the CPU, a CUDA device, or ``meta``
+    (the dry run's shapes without data, which take the plain version as
+    the CPU does)."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{what}: tensors on several devices {devs}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {dev}")
     return dev
 
@@ -250,7 +253,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
     if v.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: q and v head dims differ "
                          f"({q.shape[2]}, {v.shape[2]})")
-    if _device("flash_attention", q, k, v).type == "cpu":
+    if _device("flash_attention", q, k, v).type != "cuda":
         return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     return _launch_flash(q[:, :, None], k[:, :, None], v[:, :, None],
                          causal, 0, sm_scale)[:, :, 0]
@@ -283,7 +286,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention_gqa: batch sizes differ")
     _check_heads("flash_attention_gqa", q.shape[2], k.shape[2], q.shape[3],
                  k.shape[3])
-    if _device("flash_attention_gqa", q, k, v).type == "cpu":
+    if _device("flash_attention_gqa", q, k, v).type != "cuda":
         return flash_gqa_ref(q, k, v, causal=causal, window=int(window),
                              q_block=q_block, kv_block=kv_block,
                              return_lse=return_lse)
@@ -303,7 +306,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float = 1.0,
             and k_cache.shape == v_cache.shape):
         raise ValueError("decode_attention: shapes disagree")
     _check_heads("decode_attention", 1, 1, q.shape[2], k_cache.shape[2])
-    if _device("decode_attention", q, k_cache, v_cache, lengths).type == "cpu":
+    if _device("decode_attention", q, k_cache, v_cache, lengths).type != "cuda":
         return decode_attention_ref(q, k_cache, v_cache, lengths,
                                     sm_scale=sm_scale)
     return _launch_decode(q, k_cache[:, :, None], v_cache[:, :, None],
@@ -326,6 +329,6 @@ def decode_attention_gqa(q, k_cache, v_cache, lengths, *, sm_scale: float):
     _check_heads("decode_attention_gqa", q.shape[1], k_cache.shape[2],
                  q.shape[2], k_cache.shape[3])
     if _device("decode_attention_gqa", q, k_cache, v_cache,
-               lengths).type == "cpu":
+               lengths).type != "cuda":
         return decode_gqa_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
     return _launch_decode(q, k_cache, v_cache, lengths, sm_scale)

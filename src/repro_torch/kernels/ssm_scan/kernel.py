@@ -19,8 +19,8 @@ must be at most 16 on the card (``MAX_STATE``; Mamba-1's is 16).
 On a CUDA tensor each entry launches the kernel, built from source at
 first use (``repro_torch._build``), through
 ``repro_torch.device.launch``, and raises on any build or launch
-failure. Only tensors on the CPU, which the tests pass, go to the plain
-versions in ``ref.py``. ``ssm_scan.launches`` counts the kernel's
+failure. Only tensors on the CPU, which the tests pass, and on ``meta``
+(the dry run's account) go to the plain versions in ``ref.py``. ``ssm_scan.launches`` counts the kernel's
 launches through either entry; S = 0 returns without one.
 
 ``selective_scan`` is differentiable: where grad mode is on and an input
@@ -83,7 +83,7 @@ def _check(xi, dt, bmat, cmat, a_neg, h0):
     if len(devs) != 1:
         raise ValueError(f"selective_scan: tensors on several devices {devs}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):  # meta: the dry run's
         raise ValueError(f"selective_scan: unsupported device {dev}")
     return dev
 
@@ -134,7 +134,7 @@ def selective_scan(xi, dt, bmat, cmat, a_neg, h0=None):
 
 
 def _forward(xi, dt, bmat, cmat, a_neg, h0):
-    if xi.device.type == "cpu":
+    if xi.device.type != "cuda":  # the CPU, or meta (shapes only)
         return selective_scan_ref(xi, dt, bmat, cmat, a_neg, h0)
     return _launch(xi, dt, bmat, cmat, a_neg, h0)
 

@@ -1,18 +1,108 @@
-"""Design-space sweep summarization: per-kernel speedups, Pareto fronts.
+"""The dry run's roofline terms, and design-space sweep summarization
+(per-kernel speedups, Pareto fronts).
 
-The port's copy of the sweep half of ``launch/analysis.py`` in the JAX
-package: ``harmonic_mean``, ``sweep_speedups``, ``pareto_front``,
-``ParetoTracker`` and ``summarize_sweep``, unchanged. They operate on
-plain dict rows (``dse.SweepResult.rows()``), so they depend on nothing
-of the ``dse`` package and import nothing at all.
+The port of ``src/repro/launch/analysis.py``. Its sweep half
+(``harmonic_mean``, ``sweep_speedups``, ``pareto_front``,
+``ParetoTracker``, ``summarize_sweep``) is unchanged: plain dict rows
+(``dse.SweepResult.rows()``), nothing of the ``dse`` package.
 
-The reference module's other half reads XLA's compiled HLO for a
-roofline: ``collective_bytes``, ``roofline``, ``memory_report`` and
-``model_flops``. It is not ported here; ROADMAP queue 1 item 13d carries
-it over as a memory and FLOP account on torch's own counters.
+Its roofline half reads the account of ``launch/cost.py`` (the
+reference's reads XLA's compiled HLO): ``collective_bytes``,
+``roofline``, ``memory_report``, and ``model_flops``, copied. The module
+imports nothing, torch included; the torch side lives in ``cost.py`` and
+``dryrun.py``.
+
+Hardware constants: one NVIDIA H100 SXM at its 700 W limit, NVIDIA's
+published data-sheet peaks (not measurements): 989 TFLOP/s bf16 dense
+(the dry run's dtype), 67 TFLOP/s float32 outside the tensor cores,
+3.35 TB/s HBM, NVLink 450 GB/s each way.
+
+Terms per (arch, shape, mesh):
+  compute    = dot FLOPs per device / PEAK_FLOPS
+  memory     = bytes per device / HBM_BW
+  collective = per-device collective bytes / LINK_BW
+
+Collective byte conventions (ring-algorithm bytes per device):
+  all-gather       out * (g-1)/g
+  all-reduce       2 * out * (g-1)/g
+  reduce-scatter   out * (g-1)          (input = g * out)
+  all-to-all       out * (g-1)/g
+  collective-permute  out
 """
 
 from __future__ import annotations
+
+PEAK_FLOPS = 989e12  # bf16 dense, H100 SXM data sheet
+HBM_BW = 3.35e12
+LINK_BW = 450e9  # NVLink, each way
+
+_COLLECTIVES = {
+    "all-gather": lambda out, g: out * (g - 1) / max(g, 1),
+    "all-reduce": lambda out, g: 2 * out * (g - 1) / max(g, 1),
+    "reduce-scatter": lambda out, g: out * (g - 1),
+    "all-to-all": lambda out, g: out * (g - 1) / max(g, 1),
+    "collective-permute": lambda out, g: out,
+}
+
+
+def collective_bytes(record: list) -> dict:
+    """Per-device collective bytes by op kind from ``(kind, out_bytes,
+    group_size)`` records (the reference parses them out of HLO text)."""
+    out: dict[str, float] = {k: 0.0 for k in _COLLECTIVES}
+    counts: dict[str, int] = {k: 0 for k in _COLLECTIVES}
+    for kind, out_bytes, g in record:
+        out[kind] += _COLLECTIVES[kind](out_bytes, g)
+        counts[kind] += 1
+    return {"per_op": out, "counts": counts, "total_bytes": sum(out.values())}
+
+
+def roofline(cost: dict, n_devices: int,
+             model_flops_per_device: float = 0.0) -> dict:
+    """All three terms + the dominant one from an account
+    (``cost.CostMode.total()``, per device)."""
+    flops = float(cost["flops"])
+    bytes_accessed = float(cost["bytes"])
+    coll_total = float(cost["collective_bytes"])
+
+    t_compute = flops / PEAK_FLOPS
+    t_memory = bytes_accessed / HBM_BW
+    t_collective = coll_total / LINK_BW
+    terms = {
+        "compute_s": t_compute,
+        "memory_s": t_memory,
+        "collective_s": t_collective,
+    }
+    dominant = max(terms, key=terms.get)
+    bound = max(terms.values())
+    util = t_compute / bound if bound > 0 else 0.0
+    out = {
+        **terms,
+        "dominant": dominant.replace("_s", ""),
+        "n_devices": n_devices,
+        "flops_per_device": flops,
+        "flops_elementwise": float(cost["flops_elementwise"]),
+        "bytes_per_device": bytes_accessed,
+        "collective_bytes_per_device": coll_total,
+        "collective_per_op": cost["collective_per_op"],
+        "roofline_fraction": util,  # compute-time share of the bound
+    }
+    if model_flops_per_device:
+        out["model_flops_per_device"] = model_flops_per_device
+        out["useful_flops_ratio"] = model_flops_per_device / max(flops, 1.0)
+    return out
+
+
+def memory_report(mem: dict) -> dict:
+    """Per-device bytes from ``cost.MemoryMode.report()``: the state
+    (the arguments), the temporaries above it at the peak, and the
+    peak."""
+    args = int(mem["argument_bytes"])
+    peak = int(mem["peak_bytes"])
+    return {
+        "argument_size_in_bytes": args,
+        "temp_size_in_bytes": peak - args,
+        "peak_bytes_per_device_est": peak,
+    }
 
 
 def harmonic_mean(xs) -> float:
@@ -170,3 +260,12 @@ def summarize_sweep(rows: list) -> dict:
         ]
     out["pareto_fus2"] = pareto
     return out
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS: 6·N·D for training (fwd+bwd), 2·N·D for inference,
+    with N = active params (MoE-aware)."""
+    n = cfg.n_active_params()
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    mult = 6 if shape.kind == "train" else 2
+    return float(mult * n * tokens)

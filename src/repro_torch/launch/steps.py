@@ -2,8 +2,14 @@
 
 The port of ``src/repro/launch/steps.py``; the functions run eagerly on
 whatever device the params and tokens live on (the reference hands them
-to ``jax.jit``). Its activation sharding constraints do nothing on one
-card and have no counterpart here.
+to ``jax.jit``). They take DTensor leaves as they take tensors: with a
+mesh set (``shardctx.set_mesh_ctx``) each step runs under
+``shardctx.replicating``, so the model's plain constants (positions,
+zero states) count as replicated, and the activation sharding is the
+launcher's (``transformer.set_activation_sharding``), as in the
+reference. The train step's gradients come back as DTensors, some
+``Partial``; ``adamw.apply_updates`` redistributes each to its
+parameter's placements (the FSDP reduce-scatter) before the update.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from repro_torch import pytree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.fault import StateChanged
 from repro_torch.models import layers as L
+from repro_torch.models import shardctx
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -33,7 +40,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     def train_step(params, opt_state, batch):
         leaves = pytree.leaves(params)
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), shardctx.replicating():
                 for p in leaves:
                     p.requires_grad_(True)
                 loss = T.loss_fn(params, batch, cfg, dt)
@@ -49,7 +56,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
             )
         except Exception as e:
             raise StateChanged("the AdamW update failed") from e
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = adamw.whole(loss.detach())
         return params2, opt2, metrics
 
     return train_step
@@ -58,19 +65,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
 def make_prefill_step(cfg: ArchConfig, dt: L.Dtypes = L.FP32,
                       max_seq: Optional[int] = None):
     def prefill_step(params, batch):
-        return T.prefill(
-            params, batch["tokens"], cfg, dt,
-            frontend=batch.get("frontend"), max_seq=max_seq,
-        )
+        with shardctx.replicating():
+            return T.prefill(
+                params, batch["tokens"], cfg, dt,
+                frontend=batch.get("frontend"), max_seq=max_seq,
+            )
 
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, dt: L.Dtypes = L.FP32):
     def serve_step(params, tokens, cache, lengths, enc_out=None):
-        logits, new_cache = T.decode_step(
-            params, tokens, cache, lengths, cfg, dt, enc_out=enc_out
-        )
-        return logits, new_cache, lengths + 1
+        with shardctx.replicating():
+            logits, new_cache = T.decode_step(
+                params, tokens, cache, lengths, cfg, dt, enc_out=enc_out
+            )
+            return logits, new_cache, lengths + 1
 
     return serve_step

@@ -27,16 +27,26 @@ so they add exactly 0).
 
 Without grad (serving), ``flash_mha`` calls the kernel directly and no
 ``lse`` is written.
+
+On DTensors (a mesh, ``models.shardctx``), ``flash_mha`` runs the kernel
+on local shards (``_flash_sharded``): batch and head shards are kept,
+anything else (a sequence shard, a partial sum) is gathered first, and
+each rank's query heads meet their own kv heads through
+``flash_mha_local``, which takes the shards' global head offsets. The
+kernel's inputs stay plain tensors, so ``_Flash`` is unchanged.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels.attention.kernel import flash_attention_gqa
+from repro_torch.models import shardctx
 from repro_torch.kernels.attention.ref import NEG_INF, window_mask
 
-__all__ = ["NEG_INF", "flash_mha", "flash_bwd", "attention_ref"]
+__all__ = ["NEG_INF", "flash_mha", "flash_mha_local", "flash_bwd",
+           "attention_ref"]
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
@@ -47,12 +57,72 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
     diagonal, and the skipped blocks add exactly zero)."""
     del skip_masked_blocks
     window = int(window)
+    if shardctx.any_dtensor(q, k, v):
+        return _flash_sharded(q, k, v, causal=causal, window=window,
+                              q_block=q_block, kv_block=kv_block)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         return _Flash.apply(q, k, v, bool(causal), window, q_block,
                             kv_block)
     return flash_attention_gqa(q, k, v, causal=causal, window=window,
                                q_block=q_block, kv_block=kv_block)
+
+
+def flash_mha_local(q, k, v, *, rep: int, q_head_offset: int = 0,
+                    kv_head_offset: int = 0, **kw):
+    """``flash_mha`` on one rank's shards: q holds the query heads from
+    global head ``q_head_offset`` on, k and v the kv heads from
+    ``kv_head_offset`` on, and globally query head ``h`` reads kv head
+    ``h // rep``. The kv heads these query heads read are cut out of k
+    and v; where the local grouping would pair a query head with another
+    kv head than its global one (the query shard does not cover whole
+    groups, or lies inside one), k and v get one head per query head."""
+    hl = q.shape[2]
+    want = [(q_head_offset + j) // rep - kv_head_offset for j in range(hl)]
+    lo, hi = want[0], want[-1] + 1
+    if lo < 0 or hi > k.shape[2]:
+        raise ValueError(
+            f"flash_mha_local: query heads {q_head_offset}..."
+            f"{q_head_offset + hl - 1} read kv heads outside the local "
+            f"{kv_head_offset}...{kv_head_offset + k.shape[2] - 1}")
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    nk = hi - lo
+    if hl % nk or any(w - lo != j // (hl // nk) for j, w in enumerate(want)):
+        idx = torch.tensor([w - lo for w in want], device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return flash_mha(q, k, v, **kw)
+
+
+def _flash_sharded(q, k, v, **kw):
+    """``flash_mha`` on DTensors, by local shards: q keeps its batch and
+    head shards (``shardctx.keep``); k and v follow q's batch shards and,
+    on a mesh dim where q's heads are sharded, keep a head shard of their
+    own or are read whole (their gradient then partial)."""
+    mesh = shardctx.mesh_of(q, k, v)
+    qp = shardctx.keep(q.placements if isinstance(q, DTensor)
+                       else [shardctx.REPLICATE] * mesh.ndim, (0, 2))
+    kp_in = (k.placements if isinstance(k, DTensor)
+             else [shardctx.REPLICATE] * mesh.ndim)
+    kp, kg = [], []
+    for pq, pk in zip(qp, kp_in):
+        if pq == Shard(2) and pk != Shard(2):
+            kp.append(shardctx.REPLICATE)
+            kg.append(shardctx.PARTIAL)
+        else:
+            kp.append(pq)
+            kg.append(pq)
+    _flash_sharded.calls += 1
+    h, hk = q.shape[2], k.shape[2]
+    q_off, _ = shardctx.shard_range(h, mesh, qp, 2)
+    k_off, _ = shardctx.shard_range(hk, mesh, kp, 2)
+    out = flash_mha_local(
+        shardctx.local(q, mesh, qp), shardctx.local(k, mesh, kp, kg),
+        shardctx.local(v, mesh, kp, kg), rep=h // hk, q_head_offset=q_off,
+        kv_head_offset=k_off, **kw)
+    return shardctx.wrap(out, mesh, qp, tuple(q.shape[:3]) + (v.shape[3],))
+
+
+_flash_sharded.calls = 0  # calls on DTensors (each runs K6 on local shards)
 
 
 class _Flash(torch.autograd.Function):

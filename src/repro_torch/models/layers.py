@@ -19,23 +19,26 @@ kernel K6, the decode step attends in latent space, absorbed, in plain
 torch as the reference does (it has no kernel there).
 
 MoE (``moe_init``, ``moe_apply``) has both of the reference's paths, the
-capacity path in plain torch and the dropless one on the grouped matmul
-kernel K9.
+capacity path in plain torch, grouped by data shard under a mesh, and
+the dropless one on the grouped matmul kernel K9.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.kernels.moe_group_mm.ops import moe_ffn, route
+from repro_torch.models import shardctx
 from repro_torch.models.flash import flash_mha
 
 
@@ -190,10 +193,10 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     nh, nk = cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, nh, hd)
+    q = shardctx.reshape(x @ p["wq"].to(x.dtype), b, s, nh, hd)
     src = kv_source if kv_source is not None else x
-    k = (src @ p["wk"].to(x.dtype)).reshape(b, src.shape[1], nk, hd)
-    v = (src @ p["wv"].to(x.dtype)).reshape(b, src.shape[1], nk, hd)
+    k = shardctx.reshape(src @ p["wk"].to(x.dtype), b, src.shape[1], nk, hd)
+    v = shardctx.reshape(src @ p["wv"].to(x.dtype), b, src.shape[1], nk, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], eps)
         k = rms_norm(k, p["k_norm"], eps)
@@ -204,7 +207,7 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
     if kv_cache is None:
         out = flash_mha(q, k, v, causal=causal and kv_source is None,
                         window=window if causal and kv_source is None else 0)
-        return out.reshape(b, s, nh * hd) @ p["wo"].to(x.dtype)
+        return shardctx.reshape(out, b, s, nh * hd) @ p["wo"].to(x.dtype)
 
     ck, cv = kv_cache
     _write_rows(ck, k, cache_len)
@@ -269,7 +272,7 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, kv_cache=None,
     r_kv = cfg.kv_lora_rank
 
     q_lat = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_a_norm"], eps)
-    q = (q_lat @ p["wq_b"].to(x.dtype)).reshape(b, s, nh, dn + dr)
+    q = shardctx.reshape(q_lat @ p["wq_b"].to(x.dtype), b, s, nh, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope(q_rope, positions[:, :, None], cfg.rope_theta)
 
@@ -280,12 +283,16 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, kv_cache=None,
 
     if kv_cache is not None:
         c_lat, c_kr = kv_cache
-        _write_rows(c_lat, latent, cache_len)
-        _write_rows(c_kr, k_rope, cache_len)
+        if shardctx.any_dtensor(c_lat) and s == 1:
+            shardctx.write_row(c_lat, latent[:, 0], cache_len)
+            shardctx.write_row(c_kr, k_rope[:, 0], cache_len)
+        else:
+            _write_rows(c_lat, latent, cache_len)
+            _write_rows(c_kr, k_rope, cache_len)
         latent, k_rope = c_lat, c_kr
 
     s_kv = latent.shape[1]
-    wkv_b = p["wkv_b"].to(x.dtype).reshape(r_kv, nh, dn + dv)
+    wkv_b = shardctx.reshape(p["wkv_b"].to(x.dtype), r_kv, nh, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]  # (r, nh, dn), (r, nh, dv)
 
     if kv_cache is None:
@@ -294,8 +301,15 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, kv_cache=None,
         k_full = torch.cat(
             [k_nope, k_rope[:, :, None, :].expand(b, s_kv, nh, dr)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
+        spec = shardctx.attn_spec(nh, b)
+        if spec is not None:
+            q_full = shardctx.constrain(q_full, *spec)
+            k_full = shardctx.constrain(k_full, *spec)
+            v_full = shardctx.constrain(v_full, *spec)
         out = flash_mha(q_full, k_full, v_full, causal=True)
-        return out.reshape(b, s, nh * dv) @ p["wo"].to(x.dtype)
+        if spec is not None:
+            out = shardctx.constrain(out, *spec)
+        return shardctx.reshape(out, b, s, nh * dv) @ p["wo"].to(x.dtype)
 
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # (b, s, nh, r)
     scores = torch.einsum("bshr,bkr->bhsk", q_abs.float(), latent.float())
@@ -363,17 +377,60 @@ def moe_init(generator, cfg: ArchConfig, dt: Dtypes, device):
 
 
 def capacity_slots(flat_e, n_experts: int, cap: int):
-    """The capacity path's dispatch of the assignment stream ``flat_e``
-    ``(T·k,)``: each assignment's place in its expert's buffer is the
-    running count of that expert so far; it is kept below ``cap`` and
-    then goes to row ``expert · cap + place``, else to the overflow row
-    ``n_experts · cap``. Returns ``(slot, keep)``."""
-    onehot = F.one_hot(flat_e.long(), n_experts)  # (T·k, E)
-    pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
+    """The capacity path's dispatch of the assignment streams ``flat_e``
+    ``(..., T·k)`` (one a group): each assignment's place in its expert's
+    buffer is the running count of that expert so far in its stream; it
+    is kept below ``cap`` and then goes to row ``expert · cap + place``,
+    else to the overflow row ``n_experts · cap``. Returns ``(slot,
+    keep)``."""
+    onehot = F.one_hot(flat_e.long(), n_experts)  # (..., T·k, E)
+    pos = ((torch.cumsum(onehot, dim=-2) - 1) * onehot).sum(dim=-1)
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(pos, n_experts * cap))
     return slot, keep
+
+
+def _dispatch(flat, logits, cfg: ArchConfig, g: int, capacity_factor):
+    """The capacity path's dispatch over ``g`` groups of consecutive
+    tokens: ``(xe (g, E, cap, d), slot, gates (g, Tg·k), tok (Tg·k,))``,
+    ``tok`` each assignment's token in its group."""
+    t, d = flat.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tg = t // g
+    cap = max(1, int(capacity_factor * tg * k / e))
+    top_p, top_e = route(logits, k)
+    slot, keep = capacity_slots(top_e.reshape(g, tg * k), e, cap)
+    tok = torch.arange(tg * k, device=flat.device) // k
+    gi = torch.arange(g, device=flat.device)[:, None]
+    buf = torch.zeros((g, e * cap + 1, d), dtype=flat.dtype,
+                      device=flat.device)
+    buf[gi, slot] = flat.reshape(g, tg, d)[:, tok]  # drops share a row
+    gates = (top_p.reshape(g, tg * k) * keep).to(flat.dtype)
+    return buf[:, :e * cap].reshape(g, e, cap, d), slot, gates, tok
+
+
+def _experts(p, xe, cfg: ArchConfig):
+    """Every expert's FFN over its buffer, ``(g, E, cap, d)``."""
+    h = torch.einsum("gecd,edf->gecf", xe, p["w_in"].to(xe.dtype))
+    if cfg.gated:
+        gt = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(xe.dtype))
+        h = _act(cfg.act)(gt) * h
+    else:
+        h = _act(cfg.act)(h)
+    return torch.einsum("gecf,efd->gecd", h, p["w_out"].to(xe.dtype))
+
+
+def _combine(ye, slot, gates, tok, k: int):
+    """Each token's gated sum of its kept assignments' expert outputs,
+    ``(g · Tg, d)``, for ``k`` assignments a token."""
+    g, e, cap, d = ye.shape
+    gi = torch.arange(g, device=ye.device)[:, None]
+    ya = ye.reshape(g, e * cap, d)[gi, torch.clamp(slot, max=e * cap - 1)]
+    out = torch.zeros((g, slot.shape[1] // k, d), dtype=ye.dtype,
+                      device=ye.device)
+    out.index_add_(1, tok, ya * gates[..., None])
+    return out.reshape(-1, d)
 
 
 def moe_apply(p, x, cfg: ArchConfig, *, use_kernel: bool = False,
@@ -381,48 +438,87 @@ def moe_apply(p, x, cfg: ArchConfig, *, use_kernel: bool = False,
     """MoE FFN over ``x`` ``(B, S, d)``, by one of the reference's two
     algorithms (``use_kernel`` chooses the algorithm, as there):
 
-    - the capacity path (default): each assignment's place in its
-      expert's buffer is the running count of that expert over the
-      assignment stream (the vectorised frontier merge of the paper), and
-      assignments at or past ``cap = max(1, int(capacity_factor · T · k /
-      E))`` drop: they write the overflow row ``E · cap``, which is cut
-      off, and their gate is 0. Plain torch; the reference's groups per
-      data shard are one group on one card (no mesh, so ``shardctx`` has
-      no counterpart here);
+    - the capacity path (default): the tokens are split into groups, one
+      a data shard (``shardctx.axis_size(dp_axes())``, one group without
+      a mesh or where it does not divide the tokens), and each group is
+      dispatched into its own expert buffers: each assignment's place in
+      its expert's buffer is the running count of that expert over the
+      group's assignment stream (the vectorised frontier merge of the
+      paper), and assignments at or past ``cap = max(1,
+      int(capacity_factor · T_group · k / E))`` drop: they write the
+      overflow row ``E · cap``, which is cut off, and their gate is 0.
+      Plain torch. On DTensors the dispatch and the combine run on each
+      rank's own group (``shardctx.local``) and the expert products on
+      DTensors, as the reference's vmap over groups leaves them to XLA;
     - ``use_kernel=True``: the dropless ``moe_ffn`` over the monotonic
       dispatch, whose three grouped products launch K9 on the card. Its
       activations are fixed (SiLU gated, tanh GELU otherwise), as in the
-      reference, whatever ``cfg.act`` says.
+      reference, whatever ``cfg.act`` says. On DTensors K9 runs on each
+      rank's tokens against the whole experts.
 
     The shared experts (``n_shared_experts``, moonshot) are added on both
     paths."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     t = flat.shape[0]
-    e, k = cfg.n_experts, cfg.top_k
     logits = (flat @ p["router"].float()).float()
-    if use_kernel:
+    if use_kernel and shardctx.any_dtensor(flat):
+        out = _dropless_sharded(p, flat, logits, cfg)
+    elif use_kernel:
         out = moe_ffn(flat, logits, p["w_in"], p.get("w_gate"), p["w_out"],
-                      top_k=k)
+                      top_k=cfg.top_k)
     else:
-        top_p, top_e = route(logits, k)
-        cap = max(1, int(capacity_factor * t * k / e))
-        slot, keep = capacity_slots(top_e.reshape(t * k), e, cap)
-        tok = torch.arange(t * k, device=x.device) // k
-        buf = torch.zeros((e * cap + 1, d), dtype=flat.dtype, device=x.device)
-        buf[slot] = flat[tok]  # several drops share the overflow row
-        xe = buf[:e * cap].reshape(e, cap, d)
-        h = torch.einsum("ecd,edf->ecf", xe, p["w_in"].to(flat.dtype))
-        if cfg.gated:
-            gt = torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(flat.dtype))
-            h = _act(cfg.act)(gt) * h
+        g = max(shardctx.axis_size(shardctx.dp_axes()), 1)
+        if t % g:
+            g = 1
+        if shardctx.any_dtensor(flat):
+            out = _capacity_sharded(p, flat, logits, cfg, g, capacity_factor)
         else:
-            h = _act(cfg.act)(h)
-        ye = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(flat.dtype))
-        gates = (top_p.reshape(t * k) * keep).to(flat.dtype)
-        ya = ye.reshape(e * cap, d)[torch.clamp(slot, max=e * cap - 1)]
-        out = torch.zeros((t, d), dtype=flat.dtype, device=x.device)
-        out.index_add_(0, tok, ya * gates[:, None])
+            xe, slot, gates, tok = _dispatch(flat, logits, cfg, g,
+                                             capacity_factor)
+            out = _combine(_experts(p, xe, cfg), slot, gates, tok,
+                           cfg.top_k)
     if cfg.n_shared_experts:
         out = out + mlp_apply(p["shared"], flat, cfg)
     return out.reshape(b, s, d)
+
+
+def _dropless_sharded(p, flat, logits, cfg: ArchConfig):
+    """The dropless path on DTensors: each token's output depends on its
+    own routing alone, so K9 runs on each rank's tokens (sharded over the
+    data axes where they divide them) against the whole experts."""
+    mesh = shardctx.mesh_of(flat, logits)
+    dp = shardctx.dp_axes()
+    n_dp = math.prod(mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)
+                     if n in dp)
+    xp = tuple(Shard(0) if n in dp and flat.shape[0] % n_dp == 0
+               else shardctx.REPLICATE for n in mesh.mesh_dim_names)
+    rep = [shardctx.REPLICATE] * mesh.ndim
+    w = {k: shardctx.local(p[k], mesh, rep) for k in ("w_in", "w_out")}
+    gate = p.get("w_gate")
+    out = moe_ffn(shardctx.local(flat, mesh, xp),
+                  shardctx.local(logits, mesh, xp), w["w_in"],
+                  None if gate is None else shardctx.local(gate, mesh, rep),
+                  w["w_out"], top_k=cfg.top_k)
+    return shardctx.wrap(out, mesh, xp, tuple(flat.shape))
+
+
+def _capacity_sharded(p, flat, logits, cfg: ArchConfig, g: int,
+                      capacity_factor):
+    """The capacity path on DTensors: with ``g`` groups, each rank's
+    tokens are its data shard's group (sharded over the data axes, pod
+    outermost, as the reference's groups are ordered), dispatched and
+    combined locally; the expert buffers ``(g, E, cap, d)`` go through the
+    expert products as DTensors."""
+    mesh = shardctx.mesh_of(flat, logits)
+    dp = shardctx.dp_axes()
+    xp = tuple(Shard(0) if g > 1 and n in dp else shardctx.REPLICATE
+               for n in mesh.mesh_dim_names)
+    xe, slot, gates, tok = _dispatch(shardctx.local(flat, mesh, xp),
+                                     shardctx.local(logits, mesh, xp),
+                                     cfg, 1, capacity_factor)
+    ye = _experts(p, shardctx.wrap(xe, mesh, xp, (g,) + tuple(xe.shape[1:])),
+                  cfg)
+    out = _combine(shardctx.local(ye, mesh, xp), slot, gates, tok,
+                   cfg.top_k)
+    return shardctx.wrap(out, mesh, xp, tuple(flat.shape))

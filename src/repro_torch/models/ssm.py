@@ -1,6 +1,7 @@
 """Mamba-1 and Mamba-2 blocks: the selective scan over a sequence on K8
 (Mamba-1), the SSD form in plain torch (Mamba-2), and the recurrent
-decode steps.
+decode steps. On DTensors the scan runs on local shards, batch and
+channels kept (``_scan_sharded``).
 
 The port of ``src/repro/models/ssm.py``. Parameters are a dict with the
 reference's key names and shapes. Over a sequence (S > 1), Mamba-1's
@@ -29,9 +30,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan.kernel import selective_scan
+from repro_torch.models import shardctx
 from repro_torch.models.layers import Dtypes, _init, remat, rms_norm
 
 MAMBA2_HEAD = 64  # channels a Mamba-2 head (src/repro/models/ssm.py:27)
@@ -120,7 +123,31 @@ def _mamba1_chunked(p, xi, cfg: ArchConfig, h0, chunk: int):
     del chunk
     bmat, cmat, dt_ = _projections(p, xi, cfg.ssm_state)
     a_neg = -torch.exp(p["a_log"])
+    if shardctx.any_dtensor(xi, h0):
+        return _scan_sharded(xi.float(), dt_, bmat, cmat, a_neg, h0)
     return selective_scan(xi.float(), dt_, bmat, cmat, a_neg, h0)
+
+
+def _scan_sharded(xi, dt_, bmat, cmat, a_neg, h0):
+    """``selective_scan`` on DTensors, on local shards: the batch and
+    channel shards of ``xi`` are kept (any sequence shard is gathered: the
+    scan runs along it); B and C follow the batch shards and are read
+    whole by each channel shard, ``a_neg`` and ``h0`` follow the channel
+    shards."""
+    mesh = shardctx.mesh_of(xi, h0)
+    xp = shardctx.keep(xi.placements, (0, 2))
+    pt = shardctx.PARTIAL
+    bp = shardctx.follow(xp, {0: Shard(0)})
+    bg = shardctx.follow(xp, {0: Shard(0), 2: pt})
+    ap = shardctx.follow(xp, {2: Shard(0)})
+    ag = shardctx.follow(xp, {0: pt, 2: Shard(0)})
+    hp = shardctx.follow(xp, {0: Shard(0), 2: Shard(1)})
+    y, h = selective_scan(
+        shardctx.local(xi, mesh, xp), shardctx.local(dt_, mesh, xp),
+        shardctx.local(bmat, mesh, bp, bg), shardctx.local(cmat, mesh, bp, bg),
+        shardctx.local(a_neg, mesh, ap, ag), shardctx.local(h0, mesh, hp))
+    return (shardctx.wrap(y, mesh, xp, xi.shape),
+            shardctx.wrap(h, mesh, hp, h0.shape))
 
 
 def _mamba1_step(p, xi_t, h):
@@ -176,7 +203,7 @@ def _ssd_chunk(p, xr, xi, h, n):
     a_neg = -torch.exp(p["a_log"])  # (nh,)
     tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=xi.device))
     bmat, cmat, dt_ = _bc_dt(p, xr, n)  # dt_ (B, C, nh)
-    xf = xi.reshape(b, c, nh, hd).float()
+    xf = shardctx.reshape(xi, b, c, nh, hd).float()
     logcum = torch.cumsum(a_neg * dt_, dim=1)  # (B, C, nh), <= 0
     # inside the chunk: y[t] = sum_{j<=t} exp(lc_t - lc_j) (C_t.B_j) dt_j
     # x_j; exp of the masked upper triangle may be inf, so it is replaced
@@ -195,7 +222,7 @@ def _ssd_chunk(p, xr, xi, h, n):
                                        min=-30.0)) * dt_
     h_new = (torch.exp(torch.clamp(logcum[:, -1], min=-30.0))[:, :, None, None]
              * h + torch.einsum("bjh,bjhp,bjn->bhpn", decay_last, xf, bmat))
-    return h_new, (y_intra + y_inter).reshape(b, c, di)
+    return h_new, shardctx.reshape(y_intra + y_inter, b, c, di)
 
 
 def _mamba2_step(p, xr_t, xh_t, h, n):
@@ -245,8 +272,8 @@ def mamba_apply(p, x, cfg: ArchConfig, *, state=None):
               if state is None else state["h"])
         if s == 1:
             y, new_h = _mamba2_step(
-                p, x[:, 0], xi[:, 0].reshape(b, nh, MAMBA2_HEAD), h0, n)
-            y = y.reshape(b, 1, di)
+                p, x[:, 0], shardctx.reshape(xi[:, 0], b, nh, MAMBA2_HEAD), h0, n)
+            y = shardctx.reshape(y, b, 1, di)
         else:
             y, new_h = _mamba2_chunked(p, x, xi, cfg, h0, cfg.ssm_chunk)
         y = y + p["d_skip"].repeat_interleave(MAMBA2_HEAD)[None, None, :] * (

@@ -20,8 +20,11 @@ Parameters are a dict with the reference's key names and shapes, layer
 weights stacked over a leading layer axis (``layers.attn.wq`` is
 ``(L, d, nh·hd)``), so ``models/convert.py`` carries the reference's
 weights across leaf by leaf. The layers run as a Python loop over views
-of the stacks (the reference's ``lax.scan``; its activation sharding does
-nothing on one card and has no counterpart here). Under grad mode each
+of the stacks (the reference's ``lax.scan``). On DTensors (a mesh set by
+``shardctx.set_mesh_ctx``), ``set_activation_sharding`` redistributes
+each layer's output, and the attention layers constrain q, k, v and the
+output to ``shardctx.attn_spec``, as the reference's do; without a mesh
+both are no-ops. Under grad mode each
 layer body, each whisper encoder layer and each cross-entropy chunk is
 recomputed in the backward (``layers.remat``), where the reference wraps
 them in ``jax.checkpoint(..., nothing_saveable)``; zamba2's shared block
@@ -65,15 +68,36 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import partition
 from repro_torch.kernels.attention.kernel import decode_attention_gqa
 from repro_torch.models import layers as L
+from repro_torch.models import shardctx
 from repro_torch.models import ssm as S
 from repro_torch.models.flash import flash_mha
 
 Dtypes = L.Dtypes
+
+# Optional spec (``partition.P``) applied to layer-boundary activations
+# through ``shardctx.constrain``. Set by the launchers (launch/dryrun.py):
+# batch-over-data + sequence-over-model (Megatron sequence parallelism)
+# keeps the per-layer saved residuals 16x smaller on the production mesh.
+ACTIVATION_SHARDING = None
+
+
+def set_activation_sharding(spec):
+    global ACTIVATION_SHARDING
+    ACTIVATION_SHARDING = spec
+
+
+def _constrain(x):
+    if ACTIVATION_SHARDING is not None:
+        return shardctx.constrain(x, *ACTIVATION_SHARDING)
+    return x
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -87,9 +111,17 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 def layer_params(stacked, i: int):
-    """Layer ``i``'s parameters: views into the layer-stacked dict."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+    """Layer ``i``'s parameters: views into the layer-stacked dict (on
+    DTensors, each gathered over the data axes: ``shardctx.gather_fsdp``)."""
+    return {k: layer_params(v, i) if isinstance(v, dict)
+            else shardctx.gather_fsdp(v[i]) for k, v in stacked.items()}
+
+
+def _whole_layer(p):
+    """An unstacked layer's parameters (zamba2's shared block), each
+    gathered over the data axes on DTensors."""
+    return {k: _whole_layer(v) if isinstance(v, dict)
+            else shardctx.gather_fsdp(v) for k, v in p.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -201,19 +233,28 @@ def _attn_mlp_block(p, x, cfg: ArchConfig, *, positions, window=0,
     """Pre-norm attention (GQA or MLA), then cross attention to
     ``enc_out`` where it is given (whisper's decoder), then the MLP/MoE;
     ``window`` is the layer's sliding window (0 = full attention)."""
-    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    h = _norm(x, p["attn_norm"], cfg)
     if cfg.attn_type == "mla":
         a = _mla_train(p, h, cfg, positions)
     else:
         a = _gqa_train(p["attn"], h, cfg, positions, window, inference)
-    x = x + a
+    x = x + shardctx.gather_seq_grad(a)
     if enc_out is not None:
-        h = L.rms_norm(x, p["cross_norm"], cfg.norm_eps)
-        x = x + L.gqa_apply(p["cross"], h, cfg, positions=positions,
-                            kv_source=enc_out, use_rope=False,
-                            eps=cfg.norm_eps)
-    h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg)
+        h = _norm(x, p["cross_norm"], cfg)
+        x = x + shardctx.gather_seq_grad(L.gqa_apply(
+            p["cross"], h, cfg, positions=positions, kv_source=enc_out,
+            use_rope=False, eps=cfg.norm_eps))
+    h = _norm(x, p["mlp_norm"], cfg)
+    return x + shardctx.gather_seq_grad(_ffn(p, h, cfg))
+
+
+def _norm(x, scale, cfg: ArchConfig):
+    """A layer's pre-norm, then the sequence gathered where the layer
+    boundary sharded it (``shardctx.gather_seq``): the all-gather of
+    sequence parallelism, which XLA inserts for the reference. The
+    branch's output is added back with its gradient gathered the same way
+    (``shardctx.gather_seq_grad``)."""
+    return shardctx.gather_seq(L.rms_norm(x, scale, cfg.norm_eps))
 
 
 def _qkv(p, h, cfg: ArchConfig, positions):
@@ -221,9 +262,9 @@ def _qkv(p, h, cfg: ArchConfig, positions):
     k normed over the head dim (``qk_norm``) and then rotated."""
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
-    q = (h @ p["wq"].to(h.dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = shardctx.reshape(h @ p["wq"].to(h.dtype), b, s, cfg.n_heads, hd)
+    k = shardctx.reshape(h @ p["wk"].to(h.dtype), b, s, cfg.n_kv_heads, hd)
+    v = shardctx.reshape(h @ p["wv"].to(h.dtype), b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -237,10 +278,24 @@ def _gqa_train(p, h, cfg: ArchConfig, positions, window=0, inference=False):
     the card), masked to ``window`` keys where it is > 0."""
     b, s, _ = h.shape
     q, k, v = _qkv(p, h, cfg, positions)
+    # heads over the model axis (or model folded into batch) keeps the
+    # flash loops collective-free; the reference opts MoE archs and
+    # internvl2 out (cfg.attn_shard_constraint), measured slower there
+    use_c = cfg.attn_shard_constraint and not cfg.is_moe
+    spec = shardctx.attn_spec(cfg.n_heads, b) if use_c else None
+    if spec is not None:
+        q = shardctx.constrain(q, *spec)
+        kspec = shardctx.attn_spec(cfg.n_kv_heads, b)
+        if kspec is not None:
+            k = shardctx.constrain(k, *kspec)
+            v = shardctx.constrain(v, *kspec)
     out = flash_mha(q, k, v, causal=True, window=window,
                     skip_masked_blocks=inference)
+    if spec is not None:
+        out = shardctx.constrain(out, *spec)
     hd = cfg.resolved_head_dim
-    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(h.dtype)
+    out = shardctx.reshape(out, b, s, cfg.n_heads * hd)
+    return out @ p["wo"].to(h.dtype)
 
 
 def _mla_train(p, h, cfg: ArchConfig, positions):
@@ -266,8 +321,20 @@ def _window_schedule(cfg: ArchConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 
+def _lookup(embed, tokens):
+    """The embedding rows of ``tokens``. A DTensor table is gathered whole
+    first (FSDP's gather before use) and read through ``F.embedding``,
+    which follows the tokens' batch shards; DTensor's lookups on a table
+    sharded over two mesh dims fail in some torch releases."""
+    if shardctx.any_dtensor(embed):
+        whole = embed.redistribute(embed.device_mesh,
+                                   [shardctx.REPLICATE] * embed.device_mesh.ndim)
+        return torch.nn.functional.embedding(tokens.long(), whole)
+    return embed[tokens.long()]
+
+
 def _embed(params, tokens, cfg: ArchConfig, dt: Dtypes, frontend=None):
-    x = params["embed"][tokens.long()].to(dt.compute)
+    x = _lookup(params["embed"], tokens).to(dt.compute)
     if cfg.frontend == "vision" and frontend is not None:
         # VLM stub: precomputed patch embeddings occupy the first
         # frontend_len positions of the sequence
@@ -304,25 +371,25 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
 def _scan_attn(stacked, x, cfg: ArchConfig, positions, enc_out=None,
                inference=False):
     for i, window in enumerate(_window_schedule(cfg)):
-        x = L.remat(
+        x = _constrain(L.remat(
             lambda lp, x, window=window: _attn_mlp_block(
                 lp, x, cfg, positions=positions, window=window,
                 enc_out=enc_out, inference=inference),
-            layer_params(stacked, i), x)
+            layer_params(stacked, i), x))
     return x
 
 
 def _ssm_layer(lp, x, cfg: ArchConfig):
-    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = _norm(x, lp["attn_norm"], cfg)
     y, _ = S.mamba_apply(lp["ssm"], h, cfg)
-    return x + y
+    return x + shardctx.gather_seq_grad(y)
 
 
 def _scan_ssm(stacked, x, cfg: ArchConfig, layers):
     """Pre-norm Mamba layers ``layers`` over the whole sequence from zero
     states: one K8 launch per Mamba-1 layer on the card."""
     for i in layers:
-        x = L.remat(_ssm_layer, layer_params(stacked, i), x, cfg)
+        x = _constrain(L.remat(_ssm_layer, layer_params(stacked, i), x, cfg))
     return x
 
 
@@ -343,7 +410,7 @@ def _hybrid_forward(params, x, cfg: ArchConfig, positions, inference=False):
     segments, rest = _segments(cfg)
     for seg in segments:
         x = _scan_ssm(params["layers"], x, cfg, seg)
-        x = _attn_mlp_block(params["shared_attn"], x, cfg,
+        x = _attn_mlp_block(_whole_layer(params["shared_attn"]), x, cfg,
                             positions=positions, inference=inference)
     return _scan_ssm(params["layers"], x, cfg, rest)
 
@@ -370,7 +437,8 @@ def _enc_layer(lp, x, positions, cfg: ArchConfig):
 
 
 def _w_out(params, cfg: ArchConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return shardctx.gather_fsdp(params["embed"].T if cfg.tie_embeddings
+                                else params["lm_head"])
 
 
 # ---------------------------------------------------------------------------
@@ -382,9 +450,48 @@ def _ce_chunk(h, t, w_out):
     """Summed ``logsumexp - gold logit`` over one chunk ``h`` ``(B, c,
     d)`` of targets ``t`` ``(B, c)``, logits in float32."""
     logits = h.float() @ w_out.float()  # (B, c, V)
+    if _vocab_sharded(logits):
+        return torch.sum(_logsumexp(logits) - _gold_sharded(logits, t))
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
-    return torch.sum(lse - gold)
+    gold = shardctx.settle(torch.gather(logits, -1, t[..., None].long()))
+    return torch.sum(lse - gold[..., 0])
+
+
+def _vocab_sharded(logits) -> bool:
+    """Whether a mesh dim of more than one device shards ``logits``' last
+    (vocabulary) dim."""
+    return isinstance(logits, DTensor) and any(
+        pl == Shard(logits.ndim - 1) and logits.device_mesh.size(i) > 1
+        for i, pl in enumerate(logits.placements))
+
+
+def _logsumexp(logits):
+    """``logsumexp`` over a sharded vocabulary, as a max and a sum that
+    DTensor reduces across the shards (``m + log Σ exp(x - m)``, m the
+    row's max, held constant): DTensor's ``logsumexp`` would gather whole
+    rows of logits on every device first."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    return (m + torch.log(torch.sum(torch.exp(logits - m), dim=-1,
+                                    keepdim=True)))[..., 0]
+
+
+def _gold_sharded(logits, t):
+    """Each target's logit from logits whose vocabulary is sharded: each
+    rank reads the targets inside its own shard (0 elsewhere), and the
+    parts are summed over the vocabulary's mesh dims (``Partial``);
+    DTensor's own gather would build whole rows of logits in the
+    backward."""
+    mesh = logits.device_mesh
+    v = logits.ndim - 1
+    lp = shardctx.keep(logits.placements, (0, v))
+    off, n = partition.shard_range(logits.shape[v], mesh, lp, v)
+    idx = shardctx.local(t, mesh, shardctx.follow(lp, {0: Shard(0)}))
+    idx = idx.long() - off
+    inside = (idx >= 0) & (idx < n)
+    g = torch.gather(shardctx.local(logits, mesh, lp), -1,
+                     torch.clamp(idx, 0, n - 1)[..., None])[..., 0]
+    out = shardctx.follow(lp, {0: Shard(0), v: shardctx.PARTIAL})
+    return shardctx.wrap(g * inside, mesh, out, t.shape)
 
 
 def chunked_ce(hidden, targets, w_out, *, chunk: int = 512):
@@ -414,7 +521,8 @@ def loss_fn(params, batch, cfg: ArchConfig, dt: Dtypes = L.FP32):
     when the embeddings are tied)."""
     hidden = forward_hidden(params, batch["tokens"], cfg, dt,
                             frontend=batch.get("frontend"))
-    return chunked_ce(hidden, batch["targets"], _w_out(params, cfg))
+    return chunked_ce(shardctx.gather_seq(hidden), batch["targets"],
+                      _w_out(params, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -439,10 +547,26 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     - whisper: ``"kv"`` and ``"cross_kv"``, ``(L, batch, frontend_len,
       nk, hd)`` each, which no step reads (``_cross_decode`` recomputes
       the cross K/V from ``enc_out``), as in the reference.
+
+    Under a mesh (``shardctx.set_mesh_ctx`` with a ``DeviceMesh``) the
+    leaves are DTensors under ``partition.cache_specs``.
     """
     dev = resolve_device(device, "init_cache")
     check_supported(cfg)
+    mesh = shardctx.mesh()
+    if isinstance(mesh, DeviceMesh):
+        # sharded as the decode cache it feeds, each rank allocating its
+        # own shard (the reference's prefill out_shardings)
+        meta = _cache(cfg, batch, max_seq, dt, torch.device("meta"))
+        specs = partition.validate_divisibility(
+            partition.cache_specs(meta, mesh), meta, mesh)
+        return partition.map_specs(
+            lambda sp, m: partition.zeros(m.shape, sp, mesh, m.dtype, dev),
+            specs, meta)
+    return _cache(cfg, batch, max_seq, dt, dev)
 
+
+def _cache(cfg: ArchConfig, batch: int, max_seq: int, dt: Dtypes, dev):
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt.compute, device=dev)
 
@@ -486,13 +610,34 @@ def _decode_gqa(p, x, cfg, cache_kv, lengths, *, positions_t):
     ck, cv = cache_kv
     cap = ck.shape[1]
     slot = lengths % cap
-    rows = torch.arange(b, device=x.device)
-    ck[rows, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, slot] = v[:, 0].to(cv.dtype)
     frontier = torch.clamp(lengths + 1, max=cap)
-    out = decode_attention_gqa(q[:, 0], ck, cv, frontier, sm_scale=hd ** -0.5)
+    if shardctx.any_dtensor(ck):
+        shardctx.write_row(ck, k[:, 0], slot)
+        shardctx.write_row(cv, v[:, 0], slot)
+        out = _decode_attention_sharded(q[:, 0], ck, cv, frontier, hd ** -0.5)
+    else:
+        rows = torch.arange(b, device=x.device)
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        out = decode_attention_gqa(q[:, 0], ck, cv, frontier,
+                                   sm_scale=hd ** -0.5)
     y = out.reshape(b, 1, cfg.n_heads * hd).to(x.dtype) @ p["wo"].to(x.dtype)
     return y, (ck, cv)
+
+
+def _decode_attention_sharded(q, ck, cv, frontier, sm_scale):
+    """K7 on DTensor caches, on local shards: the caches' batch and kv-head
+    shards are kept (a sequence or head-dim shard is gathered), q and the
+    frontier follow them."""
+    mesh = ck.device_mesh
+    cp = shardctx.keep(ck.placements, (0, 2))
+    qp = shardctx.follow(cp, {0: Shard(0), 2: Shard(1)})
+    lp = shardctx.follow(cp, {0: Shard(0)})
+    out = decode_attention_gqa(
+        shardctx.local(q, mesh, qp), shardctx.local(ck, mesh, cp),
+        shardctx.local(cv, mesh, cp), shardctx.local(frontier, mesh, lp),
+        sm_scale=sm_scale)
+    return shardctx.wrap(out, mesh, qp, q.shape)
 
 
 def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
@@ -505,7 +650,7 @@ def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
     attention; without it that layer attends the token to itself, as in
     the reference (``serve_batch`` gives none). Other models ignore it."""
     check_supported(cfg)
-    x = params["embed"][tokens.long()].to(dt.compute)
+    x = _lookup(params["embed"], tokens).to(dt.compute)
     if cfg.shared_attn_every:
         x = _hybrid_decode(params, x, cache, lengths, cfg, lengths[:, None])
     elif cfg.ssm is not None:
@@ -592,7 +737,7 @@ def _hybrid_decode(params, x, cache, lengths, cfg, positions_t):
     segments, rest = _segments(cfg)
     for app, seg in enumerate(segments):
         x = _ssm_decode(params, x, cache, cfg, seg)
-        x = _attn_mlp_decode(params["shared_attn"], x, cfg,
+        x = _attn_mlp_decode(_whole_layer(params["shared_attn"]), x, cfg,
                              (sk[app], sv[app]), lengths, positions_t)
     return _ssm_decode(params, x, cache, cfg, rest)
 

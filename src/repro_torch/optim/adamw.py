@@ -16,6 +16,13 @@ run on one 80 GB card cannot spare. The in-place form keeps one
 temporary a leaf and the reference's arithmetic order in each update
 (``src/repro/optim/adamw.py:72-80``), so the results equal the
 reference's within float32 rounding.
+
+The leaves may be DTensors (a sharded state, ``distributed.partition``).
+The moments are made with their parameter's placements; ``global_norm``
+reduces each leaf over every rank (``whole``) and adds the leaves in
+JAX's order; each gradient is redistributed to its parameter's
+placements (from ``Partial``, the reduce-scatter) and the update runs on
+the local shards, in place.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import pytree
 
@@ -56,9 +64,9 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init_state(params) -> dict[str, Any]:
-    """Zero moments in float32 beside each parameter, and ``step`` 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    """Zero moments in float32 beside each parameter (with its placements
+    where it is a DTensor), and ``step`` 0."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     dev = pytree.leaves(params)[0].device
     return {
         "m": pytree.map_leaves(zeros, params),
@@ -67,9 +75,16 @@ def init_state(params) -> dict[str, Any]:
     }
 
 
+def whole(x):
+    """``x`` as a plain tensor: a DTensor's full value (reduced or gathered
+    over the ranks), anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
-    """``sqrt(Σ_leaves Σ x²)`` in float32, the leaves in JAX's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    """``sqrt(Σ_leaves Σ x²)`` in float32, the leaves in JAX's order, each
+    leaf's sum over every rank."""
+    return torch.sqrt(sum(whole(torch.sum(torch.square(x.float())))
                           for x in pytree.leaves(tree)))
 
 
@@ -77,7 +92,8 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
     """One AdamW step, in place. Returns ``(params, state, metrics)``:
     the same parameter and moment tensors, updated, a new ``step``, and
     ``{"grad_norm", "lr"}`` as 0-d tensors. ``grads`` are consumed."""
-    step = state["step"] + 1
+    old_step = state["step"]
+    step = whole(old_step) + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
@@ -85,7 +101,13 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
     for p, g, m, v in zip(*(pytree.leaves(t) for t in
                             (params, grads, state["m"], state["v"]))):
+        if isinstance(p, DTensor):
+            g = g.redistribute(p.device_mesh, p.placements)
+            p, g, m, v = (x.to_local() for x in (p, g, m, v))
         _update(p, g, m, v, scale, lr, b1c, b2c, cfg)
+    if isinstance(old_step, DTensor):
+        step = DTensor.from_local(step, old_step.device_mesh,
+                                  old_step.placements, run_check=False)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
 

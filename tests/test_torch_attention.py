@@ -230,8 +230,10 @@ def test_wrappers_check_their_arguments():
 
 
 def test_devices_other_than_cpu_and_cuda_raise():
+    """``meta`` tensors (shapes alone: the dry run's account) take the
+    plain version, as the CPU does; tensors on several devices raise."""
     q = torch.zeros(1, 4, 2, 8, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_attention_gqa(q, q, q)
+    out = ops.flash_attention_gqa(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="several devices"):
         ops.flash_attention_gqa(q, torch.zeros(1, 4, 2, 8), q)

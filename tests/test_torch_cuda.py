@@ -1709,3 +1709,128 @@ def test_kernels_without_a_backward_refuse_grad_on_the_card(cuda):
     with pytest.raises(RuntimeError, match="K3"):
         k3.fused_stream(idx, src_val, idx, idx, _randn(9, 32, device=cuda))
     torch.cuda.synchronize()
+
+
+# -- distribution: the sharded step, sharded checkpoints, K6 on shards --
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A default NCCL group of one rank on the card (destroyed after) and
+    its (1, 1) ("data", "model") mesh."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_train_steps(cfg, data, mesh):
+    """Three ``make_train_step`` steps from one seeded state on the card:
+    on plain tensors, or with ``mesh`` on DTensors (``partition``, the
+    mesh context and the layer-boundary sharding set)."""
+    from repro_torch.distributed import partition
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import shardctx
+    from repro_torch.optim import adamw
+
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, L.FP32, device="cuda")
+    opt = adamw.init_state(params)
+    if mesh is not None:
+        shardctx.set_mesh_ctx(mesh, ("data",))
+        T.set_activation_sharding(partition.P(("data",), "model", None))
+        specs = partition.validate_divisibility(
+            partition.param_specs(params), params, mesh)
+        params = partition.distribute(params, specs, mesh)
+        opt = partition.distribute(
+            opt, {"m": specs, "v": specs, "step": partition.P()}, mesh)
+        data = [partition.distribute(d, partition.batch_spec(mesh), mesh)
+                for d in data]
+    step = steps_lib.make_train_step(cfg, adamw.AdamWConfig(), L.FP32)
+    out = []
+    try:
+        for batch in data:
+            params, opt, m = step(params, opt, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+    finally:
+        shardctx.clear_mesh_ctx()
+        T.set_activation_sharding(None)
+    return out, params
+
+
+def test_sharded_step_on_card_matches_unsharded(nccl_world):
+    """The NCCL world-1 sharded step of a reduced qwen3-14b, K6 on local
+    shards, against the same steps on plain tensors: every shard is the
+    whole tensor, so the products are the same (the embedding's gradient
+    sums in another order: an index's atomics against F.embedding's)."""
+    from repro_torch.models import flash
+
+    cfg = configs.get("qwen3-14b").reduced()
+    rng = np.random.default_rng(0)
+    data = [{k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 512),
+                                              dtype=np.int32)).cuda()
+             for k in ("tokens", "targets")} for _ in range(3)]
+    plain, _ = _sharded_train_steps(cfg, data, None)
+    before = (attn.flash_attention.launches, flash._flash_sharded.calls)
+    got, params = _sharded_train_steps(cfg, data, nccl_world)
+    launches = attn.flash_attention.launches - before[0]
+    assert launches == 2 * cfg.n_layers * 3
+    assert flash._flash_sharded.calls - before[1] == launches
+    assert type(params["embed"]).__name__ == "DTensor"
+    np.testing.assert_allclose(np.array(got), np.array(plain), rtol=1e-6)
+
+
+def test_sharded_checkpoint_round_trip_on_card(nccl_world, tmp_path):
+    """DTensor params on the card saved (gathered on the main thread,
+    written by rank 0) and restored onto the mesh, bit for bit."""
+    from repro_torch import pytree
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed import partition
+
+    cfg = configs.get("qwen3-14b").reduced()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(3),
+                           cfg, L.FP32, device="cuda")
+    specs = partition.param_specs(params)
+    sharded = partition.distribute(params, specs, nccl_world)
+    saver = ckpt.AsyncCheckpointer(str(tmp_path))
+    saver.save(sharded, 7)
+    saver.wait()
+    like = pytree.map_leaves(torch.zeros_like, params)
+    back, step = ckpt.restore(like, str(tmp_path), shardings=partition.
+                              shardings_of(specs, nccl_world))
+    assert step == 7
+    for (key, want), got in zip(pytree.items(params), pytree.leaves(back)):
+        assert type(got).__name__ == "DTensor", key
+        assert torch.equal(got.full_tensor().cuda(), want), key
+
+
+@pytest.mark.parametrize("h,hk,off,hl", [(40, 8, 10, 10), (32, 8, 4, 2),
+                                         (12, 4, 3, 6)])
+def test_flash_local_with_a_head_offset_matches_plain(cuda, h, hk, off, hl):
+    """The GQA offset case: a shard of query heads ``[off, off + hl)``
+    (as a mesh spec sharding q's heads but not k's gives a rank) against
+    every kv head, through ``flash_mha_local`` with the global offset: K6
+    pairs each query head with its global kv head, against the plain
+    version's heads of the whole call."""
+    from repro_torch.models import flash
+
+    b, s, d = 2, 256, 64
+    g = torch.Generator(device="cuda").manual_seed(h + off)
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda")
+               for n in (h, hk, hk))
+    want = flash_gqa_ref(q, k, v, causal=True)[:, :, off:off + hl]
+    before = attn.flash_attention.launches
+    got = flash.flash_mha_local(q[:, :, off:off + hl], k, v, rep=h // hk,
+                                q_head_offset=off, causal=True)
+    assert attn.flash_attention.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-4
