@@ -409,6 +409,13 @@ TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = (
 # over 2.9 B squares; K6 differs from the plain softmax by ~1e-6 a row
 # (3xTF32), so each moves by far less than these bounds
 TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+# the products a traced training step launches (torch.profiler's FLOPs of
+# its aten products) against _train_flops's weight term plus flash_bwd's
+# block products, and those it records but never runs against the
+# recompute the term leaves out: each pair counts the same shapes, so
+# they differ only by a product the model misses; a recomputed last
+# product a layer would move the first by 4.4% at the training shape
+TRAIN_WITNESS_RTOL = 1e-3
 # the distribution phase: the training path's model and batch, 3 steps of
 # make_train_step on DTensors over a (1, 1) ("data", "model") mesh (NCCL,
 # world 1) against the same steps on plain tensors. Every shard is the
@@ -2357,6 +2364,23 @@ def _train_flops(cfg, b, s) -> dict:
             "flops": weights + k6 + backward}
 
 
+def _flash_bwd_block_flops(cfg, b, s, block=512) -> int:
+    """The products ``flash.flash_bwd`` runs for the causal dense ``cfg``
+    at ``b`` x ``s`` over every layer: per block pair it computes (the
+    blocks wholly above the diagonal skipped, the diagonal's whole), Q·K,
+    dV, dP, dQ and dK (6·dk + 4·dv a pair and head), and D = rowsum(dO·O)
+    (2·dv a row and head)."""
+    hd = cfg.resolved_head_dim
+    pairs = sum(min(block, s - q0) * min(block, s - k0)
+                for q0 in range(0, s, block) for k0 in range(0, s, block)
+                if k0 < q0 + block)
+    return cfg.n_layers * b * cfg.n_heads * (pairs * 10 * hd + 2 * s * hd)
+
+
+# the aten products whose FLOPs torch.profiler counts (``with_flops``)
+PRODUCT_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
 def _train_inputs(cfg):
     """The training path's seeded parameters (requiring grad) and first
     batch on the card, as ``train.run`` draws them."""
@@ -2406,9 +2430,21 @@ def profile_train_step(cfg, params, leaves, batch, flops):
     first a warm-up, the second timed, the third under ``torch.profiler``
     (its kernels: the products, K6, the rest, the most costly); the
     device's busy share is the traced kernel time over the second step's
-    wall time, and the products' rate their ``flops`` over their device
-    time (``flops``: the weights' and the attention backward's, which
-    cuBLAS runs)."""
+    wall time, and the products' rate their FLOPs (``flops``,
+    ``_train_flops``: the weights' and the attention backward's, which
+    cuBLAS runs) over their device time.
+
+    The traced step also witnesses ``_train_flops``'s weight term on the
+    card: the FLOPs that ``torch.profiler`` gives each aten product
+    (``PRODUCT_OPS``, from its shapes, ``with_flops``), split into the
+    calls that launched a kernel and those that launched none. A
+    recomputed layer's last product is such a call: the checkpoint's
+    early stop raises as the product saves its inputs, before it runs, so
+    the profiler records the call but the card never runs it. The launched
+    products (everything the step runs but K6's forward) are held against
+    the weight term plus ``flash_bwd``'s block products, and the others
+    against the term's ``recompute_not_run_flops``, each within
+    ``TRAIN_WITNESS_RTOL``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import pytree
@@ -2441,15 +2477,37 @@ def profile_train_step(cfg, params, leaves, batch, flops):
 
     step()  # warm-up
     wall, grad_ms, adamw_ms = step()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
         traced_wall, _, _ = step()
+    events = prof.key_averages()
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in events if e.device_type == DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     gemm_us = sum(r[1] for r in rows if "gemm" in r[0].lower())
     k6_us = sum(r[1] for r in rows if "flash_kernel" in r[0])
+    products = [e for e in prof.events() if e.name in PRODUCT_OPS]
+    ran = [e for e in products if e.device_time_total > 0]
+    not_run = [e for e in products if e.device_time_total <= 0]
+    ran_flops = sum(e.flops for e in ran)
+    not_run_flops = sum(e.flops for e in not_run)
+    want_ran = flops["weight_flops"] + _flash_bwd_block_flops(cfg, TRAIN_B,
+                                                              TRAIN_S)
+    want_not_run = flops["recompute_not_run_flops"]
+    witness = {
+        "launched_product_calls": len(ran),
+        "launched_product_flops": ran_flops,
+        "expected_launched_flops": want_ran,
+        "launched_rel_diff": (ran_flops - want_ran) / want_ran,
+        "product_calls_launching_nothing": len(not_run),
+        "their_flops": not_run_flops,
+        "expected_flops_launching_nothing": want_not_run,
+        "not_run_rel_diff": (not_run_flops - want_not_run) / want_not_run,
+        "gemm_kernels": sum(n for k, _, n in rows if "gemm" in k.lower())}
+    if (abs(witness["launched_rel_diff"]) > TRAIN_WITNESS_RTOL
+            or abs(witness["not_run_rel_diff"]) > TRAIN_WITNESS_RTOL):
+        raise AssertionError(f"training step's traced products: {witness}")
     return {
         "step_s": wall, "traced_step_s": traced_wall,
         "loss_and_gradients_ms": grad_ms, "adamw_ms": adamw_ms,
@@ -2457,11 +2515,13 @@ def profile_train_step(cfg, params, leaves, batch, flops):
         "device_busy_share": busy_us * 1e-6 / wall if busy_us else None,
         "kernels": sum(r[2] for r in rows),
         "products_ms": gemm_us / 1e3,
-        "products_tflop_per_s": (flops / (gemm_us * 1e-6) / 1e12
-                                 if gemm_us else None),
+        "products_tflop_per_s": (
+            (flops["weight_flops"] + flops["attention_backward_flops"])
+            / (gemm_us * 1e-6) / 1e12 if gemm_us else None),
         "k6_ms": k6_us / 1e3,
         "other_kernels_ms": (busy_us - gemm_us - k6_us) / 1e3,
         "top_kernels_ms": [(k[:80], us / 1e3, n) for k, us, n in rows[:10]],
+        "products_witness": witness,
     }
 
 
@@ -2523,8 +2583,7 @@ def run_train_path():
             f"launches in the plain step")
     torch.cuda.empty_cache()
     flops = _train_flops(cfg, TRAIN_B, TRAIN_S)
-    breakdown = profile_train_step(
-        cfg, *inputs, flops["weight_flops"] + flops["attention_backward_flops"])
+    breakdown = profile_train_step(cfg, *inputs, flops)
     del inputs
     torch.cuda.empty_cache()
 
@@ -2774,6 +2833,7 @@ def run_distribution_path():
         "losses": [m["loss"] for m in sharded["metrics"]],
         "grad_norms": [m["grad_norm"] for m in sharded["metrics"]],
         "max_rel_err": rel, "rtol": DIST_RTOL,
+        "k6_launches": sharded["launches"]["k6"],
         "k6_launches_per_step": sharded["launches"]["k6"] / DIST_STEPS,
         "k6_local_shard_calls": sharded["k6_local_shard_calls"],
         "dtensor_leaves": sharded["dtensor_leaves"],
@@ -3754,7 +3814,8 @@ def main() -> int:
                               "training (forward and recomputed backward)":
                                   tr["launches"]["k6"],
                               "distribution (sharded step, on local "
-                              "shards)": ds["k6_local_shard_calls"]},
+                              "shards)": ds["k6_launches"]},
+        "distribution_local_shard_calls": ds["k6_local_shard_calls"],
         "sharded_step_max_rel_err": ds["max_rel_err"],
         "tolerance": f"max abs err <= {ATTN_ATOL} against the plain "
                      "version (float32 inputs, products in 3xTF32 on the "

@@ -32,21 +32,19 @@ def choose_mesh_shape(n_devices: int, *, prefer_model: int = 16,
     return n_devices // model, model
 
 
-def rebuild_mesh(n_or_ranks=None, *, prefer_model: int = 16,
-                 device_type=None) -> DeviceMesh:
+def rebuild_mesh(n_or_ranks=None, *, prefer_model: int = 16) -> DeviceMesh:
     """A ``("data", "model")`` mesh over the first ``data * model`` of
     ``n_or_ranks`` (a rank count, counted from rank 0, or a list of
-    ranks; default every rank of the default group). ``device_type``
-    defaults to ``"cuda"`` under NCCL and ``"cpu"`` otherwise. Every rank
-    of the default group must call it (building the mesh's groups is a
-    collective); a rank outside the mesh gets it without a coordinate."""
+    ranks; default every rank of the default group), on ``"cuda"`` under
+    NCCL and ``"cpu"`` otherwise. Every rank of the default group must
+    call it (building the mesh's groups is a collective); a rank outside
+    the mesh gets it without a coordinate."""
     if n_or_ranks is None:
         n_or_ranks = dist.get_world_size()
     ranks = (list(range(n_or_ranks)) if isinstance(n_or_ranks, int)
              else list(n_or_ranks))
     data, model = choose_mesh_shape(len(ranks), prefer_model=prefer_model)
-    if device_type is None:
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     grid = torch.tensor(ranks[: data * model]).reshape(data, model)
     return DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
 

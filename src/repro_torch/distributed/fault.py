@@ -27,11 +27,12 @@ raises rather than apply the step's update twice. A fault before the
 update retries in place, as the reference's loop does.
 
 A sharded state (DTensor leaves) is checkpointed whole, by rank 0
-(``checkpoint.manager``). With ``state_shardings`` (a tree of
-``partition.Sharding``s of the state's structure) a restore distributes
-the checkpoint onto the current mesh and replaces the state's tensors,
-as the reference's ``device_put`` does; without it, each restored array
-is copied into its tensor in place (a DTensor's local shard).
+(``checkpoint.manager``). Its restore distributes the checkpoint onto
+the current mesh (``checkpoint.restore(..., shardings=)``) and replaces
+the state's tensors, as the reference's ``device_put`` does: under
+``state_shardings`` (a tree of ``partition.Sharding``s of the state's
+structure) where it is given, else under the live leaves' own meshes and
+placements. A state of plain tensors is restored into them in place.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from typing import Callable, Optional
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import pytree
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.distributed import partition
 
@@ -69,20 +71,25 @@ class FaultConfig:
 
 
 def _place(arr, like):
-    """A restored array into ``like``: copied into a tensor (a DTensor's
-    local shard) in place, else returned as it is."""
+    """A restored array into ``like``: copied into a tensor in place, else
+    returned as it is."""
     if not isinstance(like, torch.Tensor):
         return arr
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf of shape {arr.shape} restored "
                          f"into a tensor of shape {tuple(like.shape)}")
-    src = torch.from_numpy(arr)
-    if isinstance(like, DTensor):
-        src = partition.place(src, partition.Sharding(like.device_mesh,
-                                                      like.placements))
     with torch.no_grad():
-        like.copy_(src)
+        like.copy_(torch.from_numpy(arr))
     return like
+
+
+def _live_shardings(state):
+    """The ``partition.Sharding``s of a state of DTensors (every leaf one,
+    as ``partition.distribute`` makes it); None for plain tensors."""
+    if not any(isinstance(x, DTensor) for x in pytree.leaves(state)):
+        return None
+    return pytree.map_leaves(
+        lambda x: partition.Sharding(x.device_mesh, x.placements), state)
 
 
 class FaultTolerantLoop:
@@ -119,13 +126,15 @@ class FaultTolerantLoop:
         if ckpt.latest_step(self.cfg.checkpoint_dir) is None:
             return False
         like = {"state": self.state, "data": self.loader.state()}
-        if self.state_shardings is None:
+        shardings = (self.state_shardings if self.state_shardings is not None
+                     else _live_shardings(self.state))
+        if shardings is None:
             restored, step = ckpt.restore(like, self.cfg.checkpoint_dir,
                                           place=_place)
         else:
             restored, step = ckpt.restore(
                 like, self.cfg.checkpoint_dir,
-                shardings={"state": self.state_shardings, "data": None})
+                shardings={"state": shardings, "data": None})
         self.state = restored["state"]
         self.loader.restore(restored["data"])
         self.step = step

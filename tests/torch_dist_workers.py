@@ -126,6 +126,95 @@ def sharded_steps(rank, world, port, archs, mesh_shape, n_steps, b, s, out):
         dist.destroy_process_group()
 
 
+RECOVERY_ARCH = "qwen3-14b"
+
+
+def sharded_recovery(rank, world, port, mesh_shape, n_steps, b, s, fault_at,
+                     every, root, out):
+    """``FaultTolerantLoop`` on a ``mesh_shape`` host mesh over the train
+    step of the reduced ``RECOVERY_ARCH`` (params and moments distributed
+    by ``partition``, checkpointed every ``every`` steps): one run without
+    a fault, and one for each way the loop learns the state's shardings
+    (``state_shardings`` given, or read off the live DTensors) in which
+    step ``fault_at`` fails after its in-place update (``StateChanged``).
+    Rank 0 writes each run's ``(loss, grad_norm)`` log, its recoveries,
+    and whether every leaf ends a DTensor under the placements it was
+    distributed with."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import pytree
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.fault import (FaultConfig, FaultTolerantLoop,
+                                               StateChanged)
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import shardctx
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    _init(rank, world, port)
+    try:
+        mesh = make_host_mesh(*mesh_shape)
+        shardctx.set_mesh_ctx(mesh, ("data",))
+        T.set_activation_sharding(partition.P(("data",), "model", None))
+        cfg = reduced(RECOVERY_ARCH)
+        train_step = steps_lib.make_train_step(cfg, adamw.AdamWConfig(),
+                                               L.FP32)
+        bspec = partition.batch_spec(mesh)
+        result = {}
+        for run in ("unbroken", "given", "live"):
+            params, opt = state(cfg)
+            pspecs = partition.validate_divisibility(
+                partition.param_specs(params), params, mesh)
+            specs = {"params": pspecs,
+                     "opt": partition.validate_divisibility(
+                         {"m": pspecs, "v": pspecs, "step": partition.P()},
+                         opt, mesh)}
+            st = partition.distribute({"params": params, "opt": opt}, specs,
+                                      mesh)
+            placed = [tuple(x.placements) for x in pytree.leaves(st)]
+            failed = []
+
+            def step_fn(st, batch, run=run, failed=failed):
+                batch = partition.distribute(
+                    {k: torch.from_numpy(v) for k, v in batch.items()},
+                    bspec, mesh)
+                p, o, m = train_step(st["params"], st["opt"], batch)
+                if run != "unbroken" and loop.step == fault_at and not failed:
+                    failed.append(loop.step)
+                    raise StateChanged("injected after the update")
+                return {"params": p, "opt": o}, {k: float(v)
+                                                 for k, v in m.items()}
+
+            loop = FaultTolerantLoop(
+                step_fn, st,
+                ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                         global_batch=b)),
+                FaultConfig(checkpoint_dir=os.path.join(root, run),
+                            checkpoint_every=every, backoff_s=0.0),
+                state_shardings=(partition.shardings_of(specs, mesh)
+                                 if run == "given" else None))
+            log = loop.run(n_steps)
+            leaves = pytree.leaves(loop.state)
+            result[run] = {
+                "metrics": [(m["loss"], m["grad_norm"]) for m in log],
+                "recoveries": loop.recoveries,
+                "placements_kept": all(
+                    isinstance(x, DTensor) and tuple(x.placements) == want
+                    for x, want in zip(leaves, placed)),
+                "restored_new_tensors": not any(
+                    x is y for x, y in zip(leaves, pytree.leaves(st)))}
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(result, f)
+    finally:
+        shardctx.clear_mesh_ctx()
+        T.set_activation_sharding(None)
+        dist.destroy_process_group()
+
+
 ELASTIC_ARCH = "starcoder2-7b"
 
 
