@@ -1,0 +1,20 @@
+"""backward_share.train (%): the device time a training step launched under
+the program's ``train.backward`` span (``torch.autograd.grad``: the
+recomputed forward, the products' and K6's backward, the stacked weights'
+gradients), over the median step time of the run's steps outside the
+profiled ones. A device operation counts when its launch starts inside the
+span, on any thread: autograd's device thread launches most of these while
+the caller waits inside the span (``spans.device_seconds``)."""
+
+import statistics
+
+NAME = "train.backward"
+
+
+def read(rec):
+    prof = rec.get("profile")
+    steps = rec.get("step_s") or []
+    got = (prof or {}).get("program_device_s") or {}
+    if not prof or not prof["steps"] or not steps or NAME not in got:
+        return None
+    return 100 * got[NAME] / prof["steps"] / statistics.median(steps)

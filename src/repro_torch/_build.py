@@ -113,8 +113,16 @@ def build_all() -> dict[str, float]:
     return {name: f.result() for name, f in jobs.items()}
 
 
+# the seconds ``nvcc`` took for each kernel that ``load`` built in this
+# process
+BUILD_SECONDS: dict[str, float] = {}
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    build(name)
+    """The loaded library of kernel ``name``, built first if needed; a
+    build's seconds go to ``BUILD_SECONDS``."""
+    took = build(name)
+    if took:
+        BUILD_SECONDS[name] = took
     return ctypes.CDLL(str(library_path(name)))

@@ -47,7 +47,7 @@ from typing import Callable, Optional
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch import pytree
+from repro_torch import pytree, tracing
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.distributed import partition
 
@@ -145,7 +145,8 @@ class FaultTolerantLoop:
     def run(self, n_steps: int):
         metrics_log = []
         while self.step < n_steps:
-            batch = next(self.loader)
+            with tracing.span("train.data"):
+                batch = next(self.loader)
             t0 = time.monotonic()
             for attempt in range(self.cfg.max_retries + 1):
                 try:
@@ -164,7 +165,8 @@ class FaultTolerantLoop:
                         # loader rewound with the checkpoint: re-fetch so
                         # the retried step consumes the right batch and
                         # the stream stays aligned with the step counter
-                        batch = next(self.loader)
+                        with tracing.span("train.data"):
+                            batch = next(self.loader)
                     elif isinstance(e, StateChanged):
                         raise RuntimeError(
                             f"step {self.step} failed after it began to "

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch import pytree
+from repro_torch import pytree, tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.fault import StateChanged
 from repro_torch.models import layers as L
@@ -38,26 +38,30 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     update raises ``fault.StateChanged``: the parameters and moments may
     be partly updated."""
     def train_step(params, opt_state, batch):
-        leaves = pytree.leaves(params)
-        try:
-            with torch.enable_grad(), shardctx.replicating():
+        with tracing.span("train.step"):
+            leaves = pytree.leaves(params)
+            try:
+                with torch.enable_grad(), shardctx.replicating():
+                    for p in leaves:
+                        p.requires_grad_(True)
+                    with tracing.span("train.forward"):
+                        loss = T.loss_fn(params, batch, cfg, dt)
+                    with tracing.span("train.backward"):
+                        grads = torch.autograd.grad(loss, leaves)
+            finally:
                 for p in leaves:
-                    p.requires_grad_(True)
-                loss = T.loss_fn(params, batch, cfg, dt)
-                grads = torch.autograd.grad(loss, leaves)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        by_id = {id(p): g for p, g in zip(leaves, grads)}
-        grads = pytree.map_leaves(lambda p: by_id[id(p)], params)
-        try:
-            params2, opt2, metrics = adamw.apply_updates(
-                params, grads, opt_state, opt_cfg
-            )
-        except Exception as e:
-            raise StateChanged("the AdamW update failed") from e
-        metrics["loss"] = adamw.whole(loss.detach())
-        return params2, opt2, metrics
+                    p.requires_grad_(False)
+            by_id = {id(p): g for p, g in zip(leaves, grads)}
+            grads = pytree.map_leaves(lambda p: by_id[id(p)], params)
+            try:
+                with tracing.span("train.optimizer"):
+                    params2, opt2, metrics = adamw.apply_updates(
+                        params, grads, opt_state, opt_cfg
+                    )
+            except Exception as e:
+                raise StateChanged("the AdamW update failed") from e
+            metrics["loss"] = adamw.whole(loss.detach())
+            return params2, opt2, metrics
 
     return train_step
 
@@ -76,7 +80,7 @@ def make_prefill_step(cfg: ArchConfig, dt: L.Dtypes = L.FP32,
 
 def make_serve_step(cfg: ArchConfig, dt: L.Dtypes = L.FP32):
     def serve_step(params, tokens, cache, lengths, enc_out=None):
-        with shardctx.replicating():
+        with tracing.span("serve.step"), shardctx.replicating():
             logits, new_cache = T.decode_step(
                 params, tokens, cache, lengths, cfg, dt, enc_out=enc_out
             )

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Shard
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan.kernel import selective_scan
 from repro_torch.models import shardctx
@@ -250,37 +251,44 @@ def mamba_apply(p, x, cfg: ArchConfig, *, state=None):
     di = cfg.expand * d
     n = cfg.ssm_state
 
-    xz = x @ p["w_in"].to(x.dtype)
+    with tracing.span("mamba.in_proj"):
+        xz = x @ p["w_in"].to(x.dtype)
     xi, z = xz[..., :di], xz[..., di:]
     conv_state = None if state is None else state["conv"]
-    xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
-    xi = F.silu(xi)
+    # from the conv through the gate: what a fused step or scan replaces
+    with tracing.span("mamba.scan"):
+        xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
+        xi = F.silu(xi)
 
-    if cfg.ssm == "mamba1":
-        h0 = (torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-              if state is None else state["h"])
-        if s == 1:
-            y, new_h = _mamba1_step(p, xi[:, 0], h0)
-            y = y[:, None, :]
+        if cfg.ssm == "mamba1":
+            h0 = (torch.zeros((b, di, n), dtype=torch.float32,
+                              device=x.device)
+                  if state is None else state["h"])
+            if s == 1:
+                y, new_h = _mamba1_step(p, xi[:, 0], h0)
+                y = y[:, None, :]
+            else:
+                y, new_h = _mamba1_chunked(p, xi, cfg, h0, cfg.ssm_chunk)
+            y = y + xi.float() * p["d_skip"][None, None, :]
         else:
-            y, new_h = _mamba1_chunked(p, xi, cfg, h0, cfg.ssm_chunk)
-        y = y + xi.float() * p["d_skip"][None, None, :]
-    else:
-        nh = di // MAMBA2_HEAD
-        h0 = (torch.zeros((b, nh, MAMBA2_HEAD, n), dtype=torch.float32,
-                          device=x.device)
-              if state is None else state["h"])
-        if s == 1:
-            y, new_h = _mamba2_step(
-                p, x[:, 0], shardctx.reshape(xi[:, 0], b, nh, MAMBA2_HEAD), h0, n)
-            y = shardctx.reshape(y, b, 1, di)
-        else:
-            y, new_h = _mamba2_chunked(p, x, xi, cfg, h0, cfg.ssm_chunk)
-        y = y + p["d_skip"].repeat_interleave(MAMBA2_HEAD)[None, None, :] * (
-            xi.float())
-        # the gated norm, before silu(z)
-        y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps).float()
-    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"].to(x.dtype)
+            nh = di // MAMBA2_HEAD
+            h0 = (torch.zeros((b, nh, MAMBA2_HEAD, n), dtype=torch.float32,
+                              device=x.device)
+                  if state is None else state["h"])
+            if s == 1:
+                y, new_h = _mamba2_step(
+                    p, x[:, 0], shardctx.reshape(xi[:, 0], b, nh, MAMBA2_HEAD),
+                    h0, n)
+                y = shardctx.reshape(y, b, 1, di)
+            else:
+                y, new_h = _mamba2_chunked(p, x, xi, cfg, h0, cfg.ssm_chunk)
+            d_skip = p["d_skip"].repeat_interleave(MAMBA2_HEAD)
+            y = y + d_skip[None, None, :] * xi.float()
+            # the gated norm, before silu(z)
+            y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps).float()
+        y = y.to(x.dtype) * F.silu(z)
+    with tracing.span("mamba.out_proj"):
+        y = y @ p["w_out"].to(x.dtype)
     return y, {"conv": new_conv, "h": new_h}
 
 

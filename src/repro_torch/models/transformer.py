@@ -71,6 +71,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partition
@@ -660,8 +661,9 @@ def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
     else:
         x = _dense_decode(params, x, cache, lengths, cfg, lengths[:, None],
                           enc_out)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, 0].float() @ _w_out(params, cfg).float()
+    with tracing.span("decode.head"):
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = x[:, 0].float() @ _w_out(params, cfg).float()
     return logits, cache
 
 
@@ -751,8 +753,9 @@ def _ssm_decode(params, x, cache, cfg, layers):
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         y, st = S.mamba_apply(lp["ssm"], h, cfg,
                               state={"conv": conv[i], "h": hs[i]})
-        conv[i].copy_(st["conv"])
-        hs[i].copy_(st["h"])
+        with tracing.span("decode.state_write"):
+            conv[i].copy_(st["conv"])
+            hs[i].copy_(st["h"])
         x = x + y
     return x
 
