@@ -8,7 +8,7 @@ failure exits non-zero:
 
 1. device — the card's name, power limit and compute capability
    (must be 9.0);
-2. build  — every kernel of the port (K1-K9, eight sources) compiled
+2. build  — every kernel of the port (K1-K10, nine sources) compiled
    with ``nvcc`` (sm_90a), one process per source, all started
    together; each one's registers and shared memory printed;
 3. kernel — each kernel against its plain torch version on the card,
@@ -70,7 +70,12 @@ failure exits non-zero:
    the serve path's prefill shape (B=4, S=128), y and the final state
    within a stated float32 bound, at falcon's widths and at the serve
    shape the whole call timed as K2's beside its bytes and exponentials
-   bounds; the grouped matmul kernel (K9, float32 in 3xTF32 on the
+   bounds; the Mamba-1 decode-step kernel (K10) at falcon-mamba-7b's
+   widths and the decode cell's batch (B=512, di=8192, n=16, K=4) and at
+   a ragged width (B=3, di=8095), three steps in a row with the window and
+   state carried in place, y and the state within a stated float32 bound
+   and the window bit for bit, at B=512 the whole call timed as K2's
+   beside its bytes bound and the plain step; the grouped matmul kernel (K9, float32 in 3xTF32 on the
    tensor cores) at phi3.5-moe's prefill (T_pad=3072 from
    ``monotonic_dispatch`` of seeded router logits, 4096 -> 6400 and
    6400 -> 4096) and at block_t=16, within the float32 dot-product
@@ -149,7 +154,8 @@ failure exits non-zero:
     (6400 K7 launches);
     SSM path — falcon-mamba-7b at full width and depth (64 layers, 28.02
     GB): the prefill's logits (64 K8 launches) against 128
-    teacher-forced steps of the plain recurrence, then ``serve_batch``;
+    teacher-forced steps (16384 K10 launches, two a layer step), then
+    ``serve_batch`` (20480 K10 launches);
     MoE path — phi3.5-moe at full width, 12 of its 32 layers (63.47
     GB): the prefill (12 K6 launches, the capacity path), then each
     layer's dropless MoE (3 K9 launches) against its capacity path with
@@ -388,6 +394,15 @@ K8R_S, K8R_DI = 1000, 8192 - 96
 # = 1e-4); the exponentials (expf against torch's exp) and the state sums
 # round differently, by ~1e-7 relative, and the decay keeps it from growing
 SCAN_ATOL = SCAN_RTOL = 1e-4
+# K10, one Mamba-1 decode step at falcon-mamba-7b's widths and the decode
+# cell's batch, and a ragged width that no block size (256, 64) divides
+K10_B, K10_DI, K10_N, K10_K = 512, 8192, 16, 4
+K10R_B, K10R_DI = 3, 8192 - 97
+K10_STEPS = 3  # steps in a row, the window and state carried
+# K10 against its plain version: the projections' 8192-term sums run in
+# another order than cuBLAS's and expf rounds apart from torch's exp, by
+# ~1e-6 relative; the state's decay keeps that from growing over steps
+MSTEP_ATOL = MSTEP_RTOL = 1e-4
 # K9 at phi3.5-moe's prefill: 16 experts, top-2, d 4096, d_ff 6400
 K9_E, K9_TOP_K, K9_D, K9_FF = 16, 2, 4096, 6400
 K9_BLOCK_T, K9_SMALL_BT = 128, 16
@@ -1497,6 +1512,94 @@ def check_scan_kernel():
     return out
 
 
+def mamba_step_inputs(seed, b, di, n, k):
+    """Seeded inputs of one Mamba-1 step on the card, in ``mamba_step``'s
+    order: xz, the window and the state ~ N(0, 1); the layer's parameters
+    at the model's init scales, with the biases, the skip and the decays
+    drawn around their init values so that every term counts."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a_log = (torch.log(torch.arange(1, n + 1, device="cuda",
+                                    dtype=torch.float32))[None]
+             + 0.1 * _randn(g, di, n))
+    return [_randn(g, b, 2 * di), _randn(g, b, k - 1, di), _randn(g, b, di, n),
+            0.5 * _randn(g, k, di), 0.1 * _randn(g, di),
+            di ** -0.5 * _randn(g, di, 2 * n), di ** -0.5 * _randn(g, di, 1),
+            0.5 * _randn(g, di) - 1.0, a_log.contiguous(),
+            1.0 + 0.1 * _randn(g, di)]
+
+
+def _mamba_step_bytes(b, di, n, k) -> int:
+    """The bytes one step must move: the state and the window read and
+    written once, xz read, y written, the parameters read (float32)."""
+    return 4 * (2 * b * di * n + 2 * b * (k - 1) * di + 3 * b * di
+                + di * (k + 2 * n + n + 4))
+
+
+def _step_err(got, want, what) -> float:
+    """Max abs error of ``got``, held within MSTEP_ATOL + MSTEP_RTOL·|want|."""
+    diff = (got - want).abs()
+    if not bool((diff <= MSTEP_ATOL + MSTEP_RTOL * want.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {diff.max().item()} above "
+                             f"{MSTEP_ATOL} + {MSTEP_RTOL}|want|")
+    return float(diff.max().item())
+
+
+def check_mamba_step_kernel():
+    """K10 against ``mamba_step_ref`` on the card, ``K10_STEPS`` steps in a
+    row from one state, the window and state carried in place by each: y
+    and the state within MSTEP_ATOL + MSTEP_RTOL·|plain|, the window bit
+    for bit, at falcon-mamba-7b's widths and the decode cell's batch, and
+    at a ragged width; at the first the whole call (``_call_times``)
+    beside its bytes bound and the plain step."""
+    from repro_torch.kernels.mamba_step import kernel
+    from repro_torch.kernels.mamba_step.ref import mamba_step_ref
+
+    out = {}
+    cases = {"full": (K10_B, K10_DI), "ragged": (K10R_B, K10R_DI)}
+    for i, (name, (b, di)) in enumerate(cases.items()):
+        args = mamba_step_inputs(50 + i, b, di, K10_N, K10_K)
+        plain = [t.clone() for t in args[:3]] + args[3:]
+        ptrs = [t.data_ptr() for t in args[1:3]]
+        before = kernel.mamba_step.launches
+        err_y = err_h = 0.0
+        g = torch.Generator(device="cuda").manual_seed(60 + i)
+        for step in range(K10_STEPS):
+            y = kernel.mamba_step(*args)
+            y_ref = mamba_step_ref(*plain)
+            torch.cuda.synchronize()
+            err_y = max(err_y, _step_err(y, y_ref, f"K10 {name} y {step}"))
+            err_h = max(err_h, _step_err(args[2], plain[2],
+                                         f"K10 {name} h {step}"))
+            if not torch.equal(args[1], plain[1]):
+                raise AssertionError(f"K10 {name}: the window differs from "
+                                     f"the plain step's at step {step}")
+            args[0].copy_(_randn(g, b, 2 * di))
+            plain[0].copy_(args[0])
+        if [t.data_ptr() for t in args[1:3]] != ptrs:
+            raise AssertionError(f"K10 {name}: the state moved")
+        out[name] = {"B": b, "di": di, "n": K10_N, "K": K10_K,
+                     "steps": K10_STEPS, "max_abs_err": err_y,
+                     "h_max_abs_err": err_h,
+                     "launches": kernel.mamba_step.launches - before}
+        if name == "full":
+            full, full_plain = args, plain
+        else:
+            del args, plain
+    nbytes = _mamba_step_bytes(K10_B, K10_DI, K10_N, K10_K)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    state_ms = (4 * (2 * K10_B * K10_DI * K10_N + 2 * K10_B * (K10_K - 1)
+                     * K10_DI) / HBM_BYTES_PER_S * 1e3)
+    out.update({
+        "max_abs_err": max(c["max_abs_err"] for c in out.values()),
+        "h_max_abs_err": max(c["h_max_abs_err"] for c in out.values()),
+        "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+        "state_and_window_bound_ms": state_ms,
+        **_call_times(lambda: kernel.mamba_step(*full), bound_ms),
+        "plain_ms": _time_ms(lambda: mamba_step_ref(*full_plain), 5),
+    })
+    return out
+
+
 def check_training_kernels():
     """The kernels on the training path, each against its plain version on
     the card. K6 with ``return_lse`` at qwen3-14b's heads (B=4, S=1024,
@@ -1833,21 +1936,24 @@ def profile_decode(step, params, cfg, tok, n_steps=4):
 def _launch_counts() -> dict:
     """The launch counters of the LM kernels K6-K9."""
     from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.mamba_step import kernel as k10
     from repro_torch.kernels.moe_group_mm import kernel as k9
     from repro_torch.kernels.ssm_scan import kernel as k8
 
     return {"k6": attn.flash_attention.launches,
             "k7": attn.decode_attention.launches,
-            "k8": k8.ssm_scan.launches, "k9": k9.group_matmul.launches}
+            "k8": k8.ssm_scan.launches, "k9": k9.group_matmul.launches,
+            "k10": k10.mamba_step.launches}
 
 
 def _zero_launch_counts():
     from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.mamba_step import kernel as k10
     from repro_torch.kernels.moe_group_mm import kernel as k9
     from repro_torch.kernels.ssm_scan import kernel as k8
 
     for counted in (attn.flash_attention, attn.decode_attention,
-                    k8.ssm_scan, k9.group_matmul):
+                    k8.ssm_scan, k9.group_matmul, k10.mamba_step):
         counted.launches = 0
 
 
@@ -2115,12 +2221,13 @@ def run_lm_path(arch, *, n_layers=None):
            "init_s": time.perf_counter() - t0,
            "param_bytes": _param_bytes(params)}
     steps_run = SERVE_P + SERVE_NEW
-    zero = {"k6": 0, "k7": 0, "k8": 0, "k9": 0}
+    zero = {"k6": 0, "k7": 0, "k8": 0, "k9": 0, "k10": 0}
     # attention layers, or zamba2's applications of its shared block
     n_attn = n // cfg.shared_attn_every if cfg.shared_attn_every else n
-    if cfg.ssm == "mamba1":
-        expect = {"prefill": {**zero, "k8": n}, "teacher_forced": zero,
-                  "serve": zero}
+    if cfg.ssm == "mamba1":  # K10 twice a layer step
+        expect = {"prefill": {**zero, "k8": n},
+                  "teacher_forced": {**zero, "k10": 2 * n * SERVE_P},
+                  "serve": {**zero, "k10": 2 * n * steps_run}}
     elif cfg.is_moe:
         expect = {"prefill": {**zero, "k6": n},
                   "moe_check": {**zero, "k6": n, "k9": 3 * n},
@@ -2287,7 +2394,7 @@ def run_ring_check():
     gen.manual_seed(1)
     prompts = torch.randint(3, cfg.vocab, (RING_B, p_len), generator=gen,
                             device=dev, dtype=torch.int32)
-    zero = {"k6": 0, "k7": 0, "k8": 0, "k9": 0}
+    zero = {"k6": 0, "k7": 0, "k8": 0, "k9": 0, "k10": 0}
     expect = {"prefill": {**zero, "k6": RING_LAYERS},
               "teacher_forced": {**zero, "k7": RING_LAYERS * p_len}}
     launches = {}
@@ -2558,7 +2665,8 @@ def run_train_path():
     launches = _launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg, losses = run.cfg, run.losses
-    want = {"k6": 2 * TRAIN_LAYERS * TRAIN_STEPS, "k7": 0, "k8": 0, "k9": 0}
+    want = {"k6": 2 * TRAIN_LAYERS * TRAIN_STEPS, "k7": 0, "k8": 0, "k9": 0,
+            "k10": 0}
     if launches != want:
         raise AssertionError(f"training path launched {launches}, expected "
                              f"{want}")
@@ -2770,7 +2878,8 @@ def run_distribution_path():
                                           sharded["metrics"])
              for k in ("loss", "grad_norm")]
     rel = max(abs(a - b) / abs(a) for a, b in pairs)
-    want = {"k6": 2 * TRAIN_LAYERS * DIST_STEPS, "k7": 0, "k8": 0, "k9": 0}
+    want = {"k6": 2 * TRAIN_LAYERS * DIST_STEPS, "k7": 0, "k8": 0, "k9": 0,
+            "k10": 0}
     for run in (plain, sharded):
         if run["launches"] != want or run["recoveries"]:
             raise AssertionError(f"distribution phase: launches "
@@ -3546,6 +3655,8 @@ def main() -> int:
           json.dumps(wdec), flush=True)
     sc = check_scan_kernel()
     print("selective scan kernel:", json.dumps(sc), flush=True)
+    mst = check_mamba_step_kernel()
+    print("Mamba-1 decode-step kernel:", json.dumps(mst), flush=True)
     gm = check_gmm_kernel()
     print("grouped matmul kernel:", json.dumps(gm), flush=True)
     trk = check_training_kernels()
@@ -3911,6 +4022,26 @@ def main() -> int:
         "grad_max_abs_err": trk["scan"]["grad_max_abs_err"],
         "gradient": trk["scan"],
     }
+    step_entry = {
+        "name": "mamba_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_step/csrc/mamba_step.cu",
+        "replaces": "none: the port's own kernel (the reference's step is "
+                    "plain JAX, src/repro/models/ssm.py _mamba1_step)",
+        "launches": ssm["launches"]["serve"]["k10"],
+        "tolerance": f"|err| <= {MSTEP_ATOL} + {MSTEP_RTOL}|plain| on y and "
+                     "the state (float32; the projections' sums and exp "
+                     "round differently), the window bit for bit",
+        "max_abs_err": max(mst["max_abs_err"], mst["h_max_abs_err"]),
+        "ms": mst["ms"], "plain_ms": mst["plain_ms"],
+        "device_ms": mst["device_ms"], "host_us": mst["host_us"],
+        "bound_ms": mst["bound_ms"], "bound_by": mst["bound_by"],
+        "bound_share": mst["bound_share"],
+        "state_and_window_bound_ms": mst["state_and_window_bound_ms"],
+        "library_ms": None,
+        "library": "none: no single torch call runs a Mamba step",
+        "shape": {"B": K10_B, "di": K10_DI, "n": K10_N, "K": K10_K},
+        "cases": {k: mst[k] for k in ("full", "ragged")},
+    }
     gmm_entry = {
         "name": "group_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_group_mm/csrc/"
@@ -3942,7 +4073,8 @@ def main() -> int:
     print(_card_line())
     print(json.dumps({"kernels": [wave_entry, hazard_entry, forward_entry,
                                   spmv_entry, hist_entry, flash_entry,
-                                  decode_entry, scan_entry, gmm_entry]}))
+                                  decode_entry, scan_entry, gmm_entry,
+                                  step_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -41,6 +41,7 @@ SOURCES = {
     "attention": "kernels/attention/csrc/attention.cu",
     "ssm_scan": "kernels/ssm_scan/csrc/ssm_scan.cu",
     "moe_group_mm": "kernels/moe_group_mm/csrc/moe_group_mm.cu",
+    "mamba_step": "kernels/mamba_step/csrc/mamba_step.cu",
 }
 
 NVCC_FLAGS = (

@@ -13,7 +13,11 @@ chunks of ``ssm_chunk`` positions in ``lax.scan`` (the chunk is the RAW
 frontier of DESIGN.md §3.3, the state stored by one chunk and loaded by
 the next); the kernel walks all positions itself, so the port takes any
 S, where the reference needs S to divide by the chunk. Decode (S = 1) is
-the O(1) recurrent step on the carried ``(conv window, h state)``.
+the O(1) recurrent step on the carried ``(conv window, h state)``. A
+Mamba-1 step from a state on plain float32 CUDA tensors with no grad
+needed runs as K10 (``kernels.mamba_step``, ``kernel.takes``), which
+overwrites the window and state in place and returns them as the new
+ones; every other step runs the plain code (``_scan_plain``).
 
 Mamba-2 (SSD, zamba2-7b's hybrid stack) has a scalar decay per head of
 ``MAMBA2_HEAD`` channels. Over a sequence, ``_mamba2_chunked`` is the
@@ -34,6 +38,7 @@ from torch.distributed.tensor import Shard
 
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.mamba_step import kernel as fused_step
 from repro_torch.kernels.ssm_scan.kernel import selective_scan
 from repro_torch.models import shardctx
 from repro_torch.models.layers import Dtypes, _init, remat, rms_norm
@@ -247,49 +252,70 @@ def mamba_apply(p, x, cfg: ArchConfig, *, state=None):
     else a dict with ``conv`` ``(B, K-1, di)`` and ``h`` (``(B, di, n)``
     for Mamba-1, ``(B, nh, 64, n)`` for Mamba-2). Returns ``(y,
     new_state)``."""
-    b, s, d = x.shape
-    di = cfg.expand * d
-    n = cfg.ssm_state
-
     with tracing.span("mamba.in_proj"):
         xz = x @ p["w_in"].to(x.dtype)
-    xi, z = xz[..., :di], xz[..., di:]
-    conv_state = None if state is None else state["conv"]
     # from the conv through the gate: what a fused step or scan replaces
     with tracing.span("mamba.scan"):
-        xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
-        xi = F.silu(xi)
-
-        if cfg.ssm == "mamba1":
-            h0 = (torch.zeros((b, di, n), dtype=torch.float32,
-                              device=x.device)
-                  if state is None else state["h"])
-            if s == 1:
-                y, new_h = _mamba1_step(p, xi[:, 0], h0)
-                y = y[:, None, :]
-            else:
-                y, new_h = _mamba1_chunked(p, xi, cfg, h0, cfg.ssm_chunk)
-            y = y + xi.float() * p["d_skip"][None, None, :]
+        step = _fused_step_args(p, xz, cfg, state)
+        if step is not None:  # K10: the window and state updated in place
+            y = fused_step.mamba_step(*step)[:, None, :]
+            new_conv, new_h = state["conv"], state["h"]
         else:
-            nh = di // MAMBA2_HEAD
-            h0 = (torch.zeros((b, nh, MAMBA2_HEAD, n), dtype=torch.float32,
-                              device=x.device)
-                  if state is None else state["h"])
-            if s == 1:
-                y, new_h = _mamba2_step(
-                    p, x[:, 0], shardctx.reshape(xi[:, 0], b, nh, MAMBA2_HEAD),
-                    h0, n)
-                y = shardctx.reshape(y, b, 1, di)
-            else:
-                y, new_h = _mamba2_chunked(p, x, xi, cfg, h0, cfg.ssm_chunk)
-            d_skip = p["d_skip"].repeat_interleave(MAMBA2_HEAD)
-            y = y + d_skip[None, None, :] * xi.float()
-            # the gated norm, before silu(z)
-            y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps).float()
-        y = y.to(x.dtype) * F.silu(z)
+            y, new_conv, new_h = _scan_plain(p, x, xz, cfg, state)
     with tracing.span("mamba.out_proj"):
         y = y @ p["w_out"].to(x.dtype)
     return y, {"conv": new_conv, "h": new_h}
+
+
+def _fused_step_args(p, xz, cfg: ArchConfig, state):
+    """``fused_step.mamba_step``'s arguments where K10 serves this step (a
+    Mamba-1 step from a state, on tensors ``fused_step.takes``), else
+    None."""
+    if cfg.ssm != "mamba1" or state is None or xz.shape[1] != 1:
+        return None
+    params = [p[k] for k in fused_step.PARAMS]
+    if not fused_step.takes(xz, state["conv"], state["h"], *params):
+        return None
+    return (xz[:, 0], state["conv"], state["h"], *params)
+
+
+def _scan_plain(p, x, xz, cfg: ArchConfig, state):
+    """``mamba_apply``'s part between its two products in plain torch (K8
+    for a Mamba-1 sequence): ``(y * silu(z), new_conv, new_h)``."""
+    b, s, d = x.shape
+    di = cfg.expand * d
+    n = cfg.ssm_state
+    xi, z = xz[..., :di], xz[..., di:]
+    conv_state = None if state is None else state["conv"]
+    xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
+    xi = F.silu(xi)
+
+    if cfg.ssm == "mamba1":
+        h0 = (torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+              if state is None else state["h"])
+        if s == 1:
+            y, new_h = _mamba1_step(p, xi[:, 0], h0)
+            y = y[:, None, :]
+        else:
+            y, new_h = _mamba1_chunked(p, xi, cfg, h0, cfg.ssm_chunk)
+        y = y + xi.float() * p["d_skip"][None, None, :]
+    else:
+        nh = di // MAMBA2_HEAD
+        h0 = (torch.zeros((b, nh, MAMBA2_HEAD, n), dtype=torch.float32,
+                          device=x.device)
+              if state is None else state["h"])
+        if s == 1:
+            y, new_h = _mamba2_step(
+                p, x[:, 0], shardctx.reshape(xi[:, 0], b, nh, MAMBA2_HEAD),
+                h0, n)
+            y = shardctx.reshape(y, b, 1, di)
+        else:
+            y, new_h = _mamba2_chunked(p, x, xi, cfg, h0, cfg.ssm_chunk)
+        d_skip = p["d_skip"].repeat_interleave(MAMBA2_HEAD)
+        y = y + d_skip[None, None, :] * xi.float()
+        # the gated norm, before silu(z)
+        y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps).float()
+    return y.to(x.dtype) * F.silu(z), new_conv, new_h
 
 
 def mamba_init_state(cfg: ArchConfig, batch: int, *, device,

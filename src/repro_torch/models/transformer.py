@@ -746,16 +746,19 @@ def _hybrid_decode(params, x, cache, lengths, cfg, positions_t):
 
 def _ssm_decode(params, x, cache, cfg, layers):
     """Mamba layers ``layers``, one recurrent step each; each layer's
-    conv window and state are overwritten in place with the new ones."""
+    conv window and state are overwritten in place with the new ones. Where
+    K10 ran the step it wrote them in place already, and the copies are of
+    a tensor onto itself, which torch returns from without a launch."""
     conv, hs = cache["ssm"]["conv"], cache["ssm"]["h"]
     for i in layers:
         lp = layer_params(params["layers"], i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        conv_i, h_i = conv[i], hs[i]
         y, st = S.mamba_apply(lp["ssm"], h, cfg,
-                              state={"conv": conv[i], "h": hs[i]})
+                              state={"conv": conv_i, "h": h_i})
         with tracing.span("decode.state_write"):
-            conv[i].copy_(st["conv"])
-            hs[i].copy_(st["h"])
+            conv_i.copy_(st["conv"])
+            h_i.copy_(st["h"])
         x = x + y
     return x
 

@@ -31,7 +31,7 @@ While a ``torch.profiler`` is active, each recorded span also opens
 timeline beside the operations its host interval launched.
 
 Counters: ``launch_counts()`` reads the ``.launches`` attribute of the
-nine kernel wrappers, K1-K9; the recorder keeps each counter's change
+ten kernel wrappers, K1-K10; the recorder keeps each counter's change
 over every outermost span (the counters that moved).
 
 The recorder holds at most ``LIMIT`` closed or open spans between two
@@ -62,6 +62,7 @@ COUNTERS = {
     "K7": ("repro_torch.kernels.attention.kernel", "decode_attention"),
     "K8": ("repro_torch.kernels.ssm_scan.kernel", "ssm_scan"),
     "K9": ("repro_torch.kernels.moe_group_mm.kernel", "group_matmul"),
+    "K10": ("repro_torch.kernels.mamba_step.kernel", "mamba_step"),
 }
 
 

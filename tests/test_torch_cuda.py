@@ -1,8 +1,9 @@
 """Card-only tests of the port: the CUDA kernels (wave steps, hazard
 frontier, forwarding, ELL SpMV, histogram, flash and decode attention,
-selective scan, grouped expert matmul; K6 also with the sliding window in
-every tile, with a value head dim of its own (MLA) and at S=1 over 1500
-keys (whisper's cross attention), K6/K7 at zamba2's D=112, K7 over a
+selective scan, grouped expert matmul, the Mamba-1 decode step, also
+through the serve step; K6 also with the sliding window in every tile,
+with a value head dim of its own (MLA) and at S=1 over 1500 keys
+(whisper's cross attention), K6/K7 at zamba2's D=112, K7 over a
 wrapped ring) against their plain torch versions, a reduced qwen3-14b's
 and falcon-mamba-7b's prefill and decode step, a reduced zamba2-7b's,
 gemma3-4b's, minicpm3-4b's and whisper-tiny's prefill and teacher-forced
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import base as configs
 from repro_torch.core import executor, loopir as ir, programs
 from repro_torch.crosschecks import FORWARD_PROGRAM, WAVE_PAIRS
@@ -52,11 +54,15 @@ from repro_torch.kernels.attention.ref import (
     flash_attention_ref,
     flash_gqa_ref,
 )
+from repro_torch.kernels.mamba_step import kernel as k10
+from repro_torch.kernels.mamba_step.ref import mamba_step_ref
 from repro_torch.kernels.moe_group_mm import kernel as k9
 from repro_torch.kernels.moe_group_mm.ref import group_matmul_ref
 from repro_torch.kernels.ssm_scan import kernel as k8
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_ref
-from repro_torch.models import convert, layers as L, transformer as T
+from repro_torch.launch import steps as launch_steps
+from repro_torch.models import convert, layers as L, ssm as S
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
 
@@ -1458,8 +1464,9 @@ def test_reduced_phi35_moe_on_card_matches_the_cpu(cuda):
 
 def test_reduced_falcon_mamba_on_card_matches_the_cpu(cuda):
     """A reduced falcon-mamba-7b's prefill (one K8 launch per layer) and
-    a decode step on the card against the CPU, at the reference's decode
-    tolerance."""
+    four decode steps (K10, two launches a layer step; n = 8 takes its
+    word-at-a-time state path) on the card against the CPU, at the
+    reference's decode tolerance."""
     cfg = configs.get("falcon-mamba-7b").reduced()
     cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
                         device="cpu")
@@ -1473,15 +1480,121 @@ def test_reduced_falcon_mamba_on_card_matches_the_cpu(cuda):
     assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
     cache_cpu = T.init_cache(cfg, 2, 40, L.FP32, device="cpu")
     lens = torch.zeros(2, dtype=torch.int32)
-    got, cache = T.decode_step(card, tok[:, :1].to(cuda), cache,
-                               lens.to(cuda), cfg, L.FP32)
-    want, cache_cpu = T.decode_step(cpu, tok[:, :1], cache_cpu, lens, cfg,
-                                    L.FP32)
+    n10 = k10.mamba_step.launches
+    for t in range(4):
+        got, cache = T.decode_step(card, tok[:, t:t + 1].to(cuda), cache,
+                                   lens.to(cuda), cfg, L.FP32)
+        want, cache_cpu = T.decode_step(cpu, tok[:, t:t + 1], cache_cpu,
+                                        lens, cfg, L.FP32)
+        assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+        for key in ("conv", "h"):
+            assert torch.allclose(cache["ssm"][key].cpu(),
+                                  cache_cpu["ssm"][key], atol=2e-3,
+                                  rtol=1e-3)
     assert k8.ssm_scan.launches - n8 == cfg.n_layers
-    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
-    for key in ("conv", "h"):
-        assert torch.allclose(cache["ssm"][key].cpu(), cache_cpu["ssm"][key],
-                              atol=2e-3, rtol=1e-3)
+    assert k10.mamba_step.launches - n10 == 4 * 2 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# K10: one Mamba-1 decode step, the window and state updated in place
+# ---------------------------------------------------------------------------
+
+# y and the state against the plain step: the projections' 8192-term sums
+# run in another order than cuBLAS's and expf rounds apart from torch's exp,
+# by ~1e-6 relative; the state's decay keeps it from growing over steps
+MSTEP_ATOL = MSTEP_RTOL = 1e-4
+
+
+def _step_layer(g, di, n, k, device):
+    """One layer's step parameters in ``k10.PARAMS`` order, at the model's
+    init scales, with the biases, the skip and the decays drawn around
+    their init values."""
+    a_log = (torch.log(torch.arange(1, n + 1, dtype=torch.float32))[None]
+             + 0.1 * torch.randn(di, n, generator=g))
+    ps = [0.5 * torch.randn(k, di, generator=g),
+          0.1 * torch.randn(di, generator=g),
+          di ** -0.5 * torch.randn(di, 2 * n, generator=g),
+          di ** -0.5 * torch.randn(di, 1, generator=g),
+          0.5 * torch.randn(di, generator=g) - 1.0, a_log,
+          1.0 + 0.1 * torch.randn(di, generator=g)]
+    return [t.to(device) for t in ps]
+
+
+def _within_step_tol(got, want):
+    return bool(((got - want).abs()
+                 <= MSTEP_ATOL + MSTEP_RTOL * want.abs()).all())
+
+
+@pytest.mark.parametrize("b,di", [(1, 8192), (3, 8192), (512, 8192),
+                                  (5, 8192 - 97)])
+def test_mamba_step_kernel_matches_plain(cuda, b, di):
+    """K10 on layer 1 of a three-layer cache at falcon-mamba-7b's widths
+    (n 16, K 4; and a di that no block size divides), three steps in a row
+    against the plain step on copies: y and the state within the stated
+    bound, the window bit for bit, both updated in place (same
+    ``data_ptr``), layers 0 and 2 untouched, two launches a step."""
+    n, k = 16, 4
+    g = torch.Generator().manual_seed(70 + b)
+    params = _step_layer(g, di, n, k, cuda)
+    conv = torch.randn(3, b, k - 1, di, generator=g).to(cuda)
+    hs = torch.randn(3, b, di, n, generator=g).to(cuda)
+    conv_p, hs_p = conv.clone(), hs.clone()
+    ptrs = (conv[1].data_ptr(), hs[1].data_ptr())
+    for step in range(3):
+        xz = torch.randn(b, 2 * di, generator=g).to(cuda)
+        before = k10.mamba_step.launches
+        c1, h1 = conv[1], hs[1]
+        y = k10.mamba_step(xz, c1, h1, *params)
+        assert k10.mamba_step.launches == before + 2
+        want = mamba_step_ref(xz, conv_p[1], hs_p[1], *params)
+        torch.cuda.synchronize()
+        assert (c1.data_ptr(), h1.data_ptr()) == ptrs
+        assert y.shape == (b, di) and _within_step_tol(y, want), step
+        assert _within_step_tol(hs[1], hs_p[1]), step
+        assert torch.equal(conv[1], conv_p[1])
+        for i in (0, 2):
+            assert torch.equal(conv[i], conv_p[i])
+            assert torch.equal(hs[i], hs_p[i])
+
+
+def test_mamba_step_float16_takes_the_plain_step(cuda):
+    """A float16 Mamba-1 step on the card (the state float32, as the
+    model keeps it) is not the kernel's: ``mamba_apply`` runs the plain
+    step, with no launch."""
+    cfg = configs.get("falcon-mamba-7b").reduced()
+    g = torch.Generator().manual_seed(3)
+    p = S.mamba_init(g, cfg, L.FP32, "cpu")
+    p = {k: (v if k in ("a_log", "dt_bias", "d_skip") else v.half()).to(cuda)
+         for k, v in p.items()}
+    st = S.mamba_init_state(cfg, 2, device=cuda, dtype=torch.float16)
+    x = torch.randn(2, 1, cfg.d_model, generator=g).half().to(cuda)
+    args = (x[:, 0].repeat(1, 2 * cfg.expand), st["conv"], st["h"],
+            *(p[k] for k in k10.PARAMS))
+    assert not k10.takes(*args)
+    before = k10.mamba_step.launches
+    y, new = S.mamba_apply(p, x, cfg, state=st)
+    torch.cuda.synchronize()
+    assert k10.mamba_step.launches == before
+    assert new["h"] is not st["h"] and bool(torch.isfinite(y).all())
+
+
+def test_serve_step_launches_k10_twice_a_layer(cuda):
+    """A reduced falcon-mamba-7b's serve step on the card: each recorded
+    ``serve.step`` moves K10's counter by two a layer and no other
+    kernel's, and ``mamba_apply`` hands it the cache's own slices."""
+    cfg = configs.get("falcon-mamba-7b").reduced()
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           L.FP32, device=cuda)
+    step = launch_steps.make_serve_step(cfg, L.FP32)
+    cache = T.init_cache(cfg, 3, 8, L.FP32, device=cuda)
+    lens = torch.zeros(3, dtype=torch.int32, device=cuda)
+    tok = torch.randint(3, cfg.vocab, (3, 3), device=cuda)
+    with tracing.recording() as rec:
+        for t in range(3):
+            _, cache, lens = step(params, tok[:, t:t + 1], cache, lens)
+    torch.cuda.synchronize()
+    counts = rec.take()["counts"]
+    assert list(counts.values()) == [{"K10": 2 * cfg.n_layers}] * 3
 
 
 # ---------------------------------------------------------------------------
