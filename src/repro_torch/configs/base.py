@@ -4,10 +4,13 @@ One frozen dataclass describes every assigned architecture; the model
 factory (models/transformer.py) builds the right block stack from it.
 ``reduced()`` produces the CPU smoke-test variant of the same family.
 
-A copy of the JAX package's ``repro/configs/base.py`` (which imports no
-JAX, but the port imports nothing of that package): the fields,
-``reduced()``, ``n_params()`` and ``n_active_params()`` are the
-reference's, and the tests hold them equal for every architecture.
+``ArchConfig`` is a copy of the JAX package's ``repro/configs/base.py``
+(which imports no JAX, but the port imports nothing of that package):
+the fields, ``reduced()``, ``n_params()`` and ``n_active_params()`` are
+the reference's, and the tests hold them equal for every architecture
+the reference has. ``PortArchConfig`` adds the port's own fields, for
+configurations the reference does not have (moonlight-16b-a3b); on an
+``ArchConfig`` each reads its default, the reference's behaviour.
 """
 
 from __future__ import annotations
@@ -71,6 +74,15 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     max_seq: int = 131072
+
+    # The port's own settings: fields of ``PortArchConfig`` only, so an
+    # ``ArchConfig`` stays field for field the reference's; here, the
+    # defaults it reads.
+    n_dense_layers = 0
+    router_score = "softmax"
+    router_bias = False
+    routed_scale = 1.0
+    moe_dropless = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -183,6 +195,64 @@ class ArchConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An ``ArchConfig`` with the port's own fields (DeepSeek-V3's block as
+    Moonlight publishes it), each defaulting to the reference's
+    behaviour."""
+
+    # leading layers with a dense MLP of ``d_ff`` before the MoE layers
+    # (``first_k_dense_replace``)
+    n_dense_layers: int = 0
+    # "softmax": top-k of the softmax, renormalised (the reference's);
+    # "sigmoid": top-k of sigmoid(logits) + router_bias, the gates their
+    # sigmoid renormalised, times routed_scale (``scoring_func`` sigmoid,
+    # ``noaux_tc`` with one group, ``norm_topk_prob``)
+    router_score: str = "softmax"
+    router_bias: bool = False  # ``e_score_correction_bias``, (E,)
+    routed_scale: float = 1.0  # ``routed_scaling_factor``
+    # serve the MoE on the dropless path (K9), not the capacity path
+    moe_dropless: bool = False
+
+    def _layer_counts(self) -> tuple[int, int, int, int]:
+        """Parameters of one attention part, dense MLP, MoE layer's
+        experts and MoE layer's rest (router, bias, shared experts)."""
+        d, nh = self.d_model, self.n_heads
+        dn, dr, dv = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim
+        n_mats = 3 if self.gated else 2
+        if self.attn_type == "mla":
+            rq, rkv = self.q_lora_rank, self.kv_lora_rank
+            q = d * rq + rq * nh * (dn + dr) if rq else d * nh * (dn + dr)
+            attn = (q + d * (rkv + dr) + rkv * nh * (dn + dv)
+                    + nh * dv * d)
+        else:
+            hd = self.resolved_head_dim
+            attn = 2 * d * hd * (self.n_heads + self.n_kv_heads)
+        ff = self.moe_d_ff or self.d_ff
+        experts = self.n_experts * n_mats * d * ff
+        rest = (d * self.n_experts + self.n_experts * self.router_bias
+                + self.n_shared_experts * n_mats * d * ff)
+        return attn, n_mats * d * self.d_ff, experts, rest
+
+    def n_params(self) -> int:
+        """Parameters in products, the router's bias too (embeddings and
+        blocks; no norms, as ``ArchConfig.n_params``)."""
+        attn, dense, experts, rest = self._layer_counts()
+        n_moe = self.n_layers - self.n_dense_layers if self.is_moe else 0
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return (emb + self.n_layers * attn
+                + (self.n_layers - n_moe) * dense + n_moe * (experts + rest))
+
+    def n_active_params(self) -> int:
+        if not self.is_moe:
+            return self.n_params()
+        _, _, experts, _ = self._layer_counts()
+        n_moe = self.n_layers - self.n_dense_layers
+        return (self.n_params()
+                - n_moe * experts * (self.n_experts - self.top_k)
+                // self.n_experts)
+
+
 _REGISTRY: dict[str, ArchConfig] = {}
 
 
@@ -210,6 +280,7 @@ def _load_all():
         gemma3_4b,
         internvl2_76b,
         minicpm3_4b,
+        moonlight_16b_a3b,
         moonshot_v1_16b,
         phi35_moe,
         qwen3_14b,

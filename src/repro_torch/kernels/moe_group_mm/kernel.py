@@ -17,9 +17,10 @@ On a CUDA tensor ``group_matmul`` launches the kernel (float32 in
 3×TF32 on the tensor cores, float16 and bfloat16 natively), built from
 source at first use (``repro_torch._build``), through
 ``repro_torch.device.launch``, and raises on any build or launch
-failure. Only tensors on the CPU, which the tests pass, go to the plain
-version in ``ref.py``; the reference's ``interpret=`` has no
-counterpart, since the device decides. ``group_matmul.launches`` counts
+failure. Only tensors on the CPU, which the tests pass, and ``meta``
+tensors (the dry run's shapes without data) go to the plain version in
+``ref.py``; the reference's ``interpret=`` has no counterpart, since the
+device decides. ``group_matmul.launches`` counts
 kernel launches; ``T_pad = 0`` returns an empty result without one.
 """
 
@@ -71,7 +72,7 @@ def group_matmul(x_sorted, w, block_expert, *, block_t: int = 128):
     if len(devs) != 1:
         raise ValueError(f"group_matmul: tensors on several devices {devs}")
     dev = devs.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return group_matmul_ref(x_sorted, w, block_expert, block_t=block_t)
     if dev.type != "cuda":
         raise ValueError(f"group_matmul: unsupported device {dev}")

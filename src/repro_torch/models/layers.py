@@ -13,14 +13,17 @@ reference's own weights across, bit for bit, for the tests.
 ``gqa_apply`` is the reference's general GQA layer (whisper's encoder,
 its decoder's cross attention, and the cached branch that no path calls);
 the decoders' own full-sequence attention is ``transformer._gqa_train``.
-``mla_apply`` is minicpm3's multi-head latent attention: the prefill
-expands the latent to per-head K (96 wide) and V (64 wide) for the flash
-kernel K6, the decode step attends in latent space, absorbed, in plain
-torch as the reference does (it has no kernel there).
+``mla_apply`` is multi-head latent attention (minicpm3's, with a query
+LoRA; moonlight's, with a direct query projection): the prefill expands
+the latent to per-head K and V for the flash kernel K6, the decode step
+attends in latent space, absorbed, in plain torch as the reference does
+(it has no kernel there).
 
 MoE (``moe_init``, ``moe_apply``) has both of the reference's paths, the
 capacity path in plain torch, grouped by data shard under a mesh, and
-the dropless one on the grouped matmul kernel K9.
+the dropless one on the grouped matmul kernel K9; its router is the
+reference's softmax or DeepSeek-V3's sigmoid with a correction bias
+(``ops.route``), as the config says.
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention.ref import NEG_INF
-from repro_torch.kernels.moe_group_mm.ops import moe_ffn, route
+from repro_torch.kernels.moe_group_mm.ops import expert_ffn, moe_ffn, route
 from repro_torch.models import shardctx
 from repro_torch.models.flash import flash_mha
 
@@ -229,30 +233,40 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
 
 
 def mla_init(generator, cfg: ArchConfig, dt: Dtypes, device):
+    """MLA's weights; with ``q_lora_rank`` 0 the queries come through one
+    direct ``wq`` ``(d, nh · (dn + dr))``, with no ``wq_a``, ``wq_b`` or
+    ``q_a_norm``."""
     d = cfg.d_model
     r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     nh = cfg.n_heads
     s = d ** -0.5
-    return {
-        "wq_a": _init(generator, (d, r_q), s, dt.param, device),
-        "wq_b": _init(generator, (r_q, nh * (dn + dr)), r_q ** -0.5,
-                      dt.param, device),
+    if r_q:
+        p = {"wq_a": _init(generator, (d, r_q), s, dt.param, device),
+             "wq_b": _init(generator, (r_q, nh * (dn + dr)), r_q ** -0.5,
+                           dt.param, device)}
+    else:
+        p = {"wq": _init(generator, (d, nh * (dn + dr)), s, dt.param,
+                         device)}
+    p.update({
         "wkv_a": _init(generator, (d, r_kv + dr), s, dt.param, device),
         "wkv_b": _init(generator, (r_kv, nh * (dn + dv)), r_kv ** -0.5,
                        dt.param, device),
         "wo": _init(generator, (nh * dv, d), (nh * dv) ** -0.5, dt.param,
                     device),
-        "q_a_norm": torch.zeros(r_q, dtype=dt.param, device=device),
-        "kv_a_norm": torch.zeros(r_kv, dtype=dt.param, device=device),
-    }
+    })
+    if r_q:
+        p["q_a_norm"] = torch.zeros(r_q, dtype=dt.param, device=device)
+    p["kv_a_norm"] = torch.zeros(r_kv, dtype=dt.param, device=device)
+    return p
 
 
 def mla_apply(p, x, cfg: ArchConfig, *, positions, kv_cache=None,
               cache_len=None, eps: float = 1e-6):
     """Multi-head latent attention (``src/repro/models/layers.py:195``) on
     ``x`` ``(B, S, d)``. Queries go through a rank-``q_lora_rank``
-    bottleneck; keys and values come from one normed latent of
+    bottleneck (RMS-normed), or with ``q_lora_rank`` 0 through one direct
+    projection ``wq``; keys and values come from one normed latent of
     ``kv_lora_rank`` and a rotary key of ``qk_rope_dim`` shared by every
     head. Scale ``(qk_nope_dim + qk_rope_dim)**-0.5``.
 
@@ -264,15 +278,20 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, kv_cache=None,
       (decode): the new rows are written at ``cache_len`` in place (the
       reference returns a new cache), and the queries attend in latent
       space, ``W_uk`` absorbed into q and ``W_uv`` into the output, to
-      the keys at or before the first query's position: plain torch, as
-      in the reference. Returns ``(y, (latent, k_rope))``."""
+      the keys at or before the first query's position (the span
+      ``mla.attend``): plain torch, as in the reference. Returns ``(y,
+      (latent, k_rope))``."""
     b, s, _ = x.shape
     nh = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r_kv = cfg.kv_lora_rank
 
-    q_lat = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_a_norm"], eps)
-    q = shardctx.reshape(q_lat @ p["wq_b"].to(x.dtype), b, s, nh, dn + dr)
+    if cfg.q_lora_rank:
+        q_lat = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_a_norm"], eps)
+        q = q_lat @ p["wq_b"].to(x.dtype)
+    else:
+        q = x @ p["wq"].to(x.dtype)
+    q = shardctx.reshape(q, b, s, nh, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope(q_rope, positions[:, :, None], cfg.rope_theta)
 
@@ -311,16 +330,19 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, kv_cache=None,
             out = shardctx.constrain(out, *spec)
         return shardctx.reshape(out, b, s, nh * dv) @ p["wo"].to(x.dtype)
 
-    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # (b, s, nh, r)
-    scores = torch.einsum("bshr,bkr->bhsk", q_abs.float(), latent.float())
-    scores = scores + torch.einsum("bshd,bkd->bhsk", q_rope.float(),
-                                   k_rope.float())
-    scores = scores * ((dn + dr) ** -0.5)
-    k_pos = torch.arange(s_kv, device=x.device)[None, :]
-    mask = (k_pos <= positions[:, :1])[:, None, None, :]
-    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(x.dtype)
-    ctx_lat = torch.einsum("bhsk,bkr->bshr", w, latent)  # (b, s, nh, r)
-    out = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)  # W_uv absorbed
+    with tracing.span("mla.attend"):
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # (b, s, nh, r)
+        scores = torch.einsum("bshr,bkr->bhsk", q_abs.float(),
+                              latent.float())
+        scores = scores + torch.einsum("bshd,bkd->bhsk", q_rope.float(),
+                                       k_rope.float())
+        scores = scores * ((dn + dr) ** -0.5)
+        k_pos = torch.arange(s_kv, device=x.device)[None, :]
+        mask = (k_pos <= positions[:, :1])[:, None, None, :]
+        w = torch.softmax(torch.where(mask, scores, NEG_INF),
+                          dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhsk,bkr->bshr", w, latent)  # (b, s, nh, r)
+        out = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)  # W_uv absorbed
     y = out.reshape(b, s, nh * dv) @ p["wo"].to(x.dtype)
     return y, kv_cache
 
@@ -361,12 +383,18 @@ def mlp_apply(p, x, cfg: ArchConfig):
 
 
 def moe_init(generator, cfg: ArchConfig, dt: Dtypes, device):
+    """The router (float32), its correction bias where the config has one
+    (float32, zero-initialised), the experts' weights stacked over E, and
+    the shared experts as one MLP of ``n_shared_experts · moe_d_ff``."""
     d, ff, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
-    p = {
-        "router": _init(generator, (d, e), d ** -0.5, torch.float32, device),
+    p = {"router": _init(generator, (d, e), d ** -0.5, torch.float32,
+                         device)}
+    if cfg.router_bias:
+        p["router_bias"] = torch.zeros(e, dtype=torch.float32, device=device)
+    p.update({
         "w_in": _init(generator, (e, d, ff), d ** -0.5, dt.param, device),
         "w_out": _init(generator, (e, ff, d), ff ** -0.5, dt.param, device),
-    }
+    })
     if cfg.gated:
         p["w_gate"] = _init(generator, (e, d, ff), d ** -0.5, dt.param,
                             device)
@@ -391,15 +419,25 @@ def capacity_slots(flat_e, n_experts: int, cap: int):
     return slot, keep
 
 
-def _dispatch(flat, logits, cfg: ArchConfig, g: int, capacity_factor):
-    """The capacity path's dispatch over ``g`` groups of consecutive
-    tokens: ``(xe (g, E, cap, d), slot, gates (g, Tg·k), tok (Tg·k,))``,
-    ``tok`` each assignment's token in its group."""
+def _route(p, logits, cfg: ArchConfig):
+    """``ops.route`` of ``logits`` as ``cfg`` routes (``p``'s correction
+    bias where it has one)."""
+    return route(logits, cfg.top_k, **_routing(p, cfg))
+
+
+def _routing(p, cfg: ArchConfig, bias=None) -> dict:
+    return {"score": cfg.router_score, "scale": cfg.routed_scale,
+            "bias": p.get("router_bias") if bias is None else bias}
+
+
+def _dispatch(flat, top_p, top_e, cfg: ArchConfig, g: int, capacity_factor):
+    """The capacity path's dispatch of routed tokens over ``g`` groups of
+    consecutive tokens: ``(xe (g, E, cap, d), slot, gates (g, Tg·k), tok
+    (Tg·k,))``, ``tok`` each assignment's token in its group."""
     t, d = flat.shape
     e, k = cfg.n_experts, cfg.top_k
     tg = t // g
     cap = max(1, int(capacity_factor * tg * k / e))
-    top_p, top_e = route(logits, k)
     slot, keep = capacity_slots(top_e.reshape(g, tg * k), e, cap)
     tok = torch.arange(tg * k, device=flat.device) // k
     gi = torch.arange(g, device=flat.device)[:, None]
@@ -456,30 +494,42 @@ def moe_apply(p, x, cfg: ArchConfig, *, use_kernel: bool = False,
       reference, whatever ``cfg.act`` says. On DTensors K9 runs on each
       rank's tokens against the whole experts.
 
-    The shared experts (``n_shared_experts``, moonshot) are added on both
-    paths."""
+    Both route as the config says (``_route``). The shared experts
+    (``n_shared_experts``, moonshot and moonlight) are added on both
+    paths. Spans: ``moe.route`` (the router's product and the routing),
+    ``moe.experts`` (dispatch, the experts' products, combine),
+    ``moe.shared``. Off DTensors each token's experts ``(T, top_k)`` are
+    tapped as ``"moe.route"`` (``tracing.tap``)."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     t = flat.shape[0]
-    logits = (flat @ p["router"].float()).float()
-    if use_kernel and shardctx.any_dtensor(flat):
-        out = _dropless_sharded(p, flat, logits, cfg)
-    elif use_kernel:
-        out = moe_ffn(flat, logits, p["w_in"], p.get("w_gate"), p["w_out"],
-                      top_k=cfg.top_k)
-    else:
-        g = max(shardctx.axis_size(shardctx.dp_axes()), 1)
-        if t % g:
-            g = 1
-        if shardctx.any_dtensor(flat):
-            out = _capacity_sharded(p, flat, logits, cfg, g, capacity_factor)
+    sharded = shardctx.any_dtensor(flat)
+    with tracing.span("moe.route"):
+        logits = (flat @ p["router"].float()).float()
+        if not sharded:  # on DTensors each rank routes its own tokens
+            top_p, top_e = _route(p, logits, cfg)
+            tracing.tap("moe.route", top_e)
+    with tracing.span("moe.experts"):
+        if use_kernel and sharded:
+            out = _dropless_sharded(p, flat, logits, cfg)
+        elif use_kernel:
+            out = expert_ffn(flat, top_p, top_e, p["w_in"], p.get("w_gate"),
+                             p["w_out"])
         else:
-            xe, slot, gates, tok = _dispatch(flat, logits, cfg, g,
-                                             capacity_factor)
-            out = _combine(_experts(p, xe, cfg), slot, gates, tok,
-                           cfg.top_k)
+            g = max(shardctx.axis_size(shardctx.dp_axes()), 1)
+            if t % g:
+                g = 1
+            if sharded:
+                out = _capacity_sharded(p, flat, logits, cfg, g,
+                                        capacity_factor)
+            else:
+                xe, slot, gates, tok = _dispatch(flat, top_p, top_e, cfg, g,
+                                                 capacity_factor)
+                out = _combine(_experts(p, xe, cfg), slot, gates, tok,
+                               cfg.top_k)
     if cfg.n_shared_experts:
-        out = out + mlp_apply(p["shared"], flat, cfg)
+        with tracing.span("moe.shared"):
+            out = out + mlp_apply(p["shared"], flat, cfg)
     return out.reshape(b, s, d)
 
 
@@ -499,7 +549,8 @@ def _dropless_sharded(p, flat, logits, cfg: ArchConfig):
     out = moe_ffn(shardctx.local(flat, mesh, xp),
                   shardctx.local(logits, mesh, xp), w["w_in"],
                   None if gate is None else shardctx.local(gate, mesh, rep),
-                  w["w_out"], top_k=cfg.top_k)
+                  w["w_out"], top_k=cfg.top_k,
+                  **_routing(p, cfg, _local_bias(p, mesh)))
     return shardctx.wrap(out, mesh, xp, tuple(flat.shape))
 
 
@@ -514,11 +565,19 @@ def _capacity_sharded(p, flat, logits, cfg: ArchConfig, g: int,
     dp = shardctx.dp_axes()
     xp = tuple(Shard(0) if g > 1 and n in dp else shardctx.REPLICATE
                for n in mesh.mesh_dim_names)
-    xe, slot, gates, tok = _dispatch(shardctx.local(flat, mesh, xp),
-                                     shardctx.local(logits, mesh, xp),
-                                     cfg, 1, capacity_factor)
+    top_p, top_e = route(shardctx.local(logits, mesh, xp), cfg.top_k,
+                         **_routing(p, cfg, _local_bias(p, mesh)))
+    xe, slot, gates, tok = _dispatch(shardctx.local(flat, mesh, xp), top_p,
+                                     top_e, cfg, 1, capacity_factor)
     ye = _experts(p, shardctx.wrap(xe, mesh, xp, (g,) + tuple(xe.shape[1:])),
                   cfg)
     out = _combine(shardctx.local(ye, mesh, xp), slot, gates, tok,
                    cfg.top_k)
     return shardctx.wrap(out, mesh, xp, tuple(flat.shape))
+
+
+def _local_bias(p, mesh):
+    """The router's correction bias, whole on every rank, or None."""
+    bias = p.get("router_bias")
+    return None if bias is None else shardctx.local(
+        bias, mesh, [shardctx.REPLICATE] * mesh.ndim)

@@ -53,11 +53,15 @@ grouped matmul kernel K9 runs on the dropless path
 minicpm3's MLA layers prefill on K6 with a value head dim of their own
 (q, k 96, v 64) and decode in latent space in plain torch over the
 ``"mla"`` cache of latent and rotary-key rows (the reference has no
-kernel there). whisper's encoder runs non-causal ``layers.gqa_apply`` on
-K6 over the stub frame embeddings (``frontend``, ``(B, 1500, 384)``);
-each decoder layer adds cross attention to the encoder output (K6), and
-its decode step recomputes that cross attention from ``enc_out`` every
-step (``_cross_decode``). Without ``enc_out`` (``serve_batch`` passes
+kernel there). moonlight (a config of the port's own) has MLA without a
+query LoRA, ``n_dense_layers`` leading layers with a dense MLP (their
+own stack, ``dense_layers``, before ``layers``), and MoE layers that its
+config serves on the dropless path (``moe_dropless``: K9, no token
+dropped) with a sigmoid router. whisper's encoder runs non-causal
+``layers.gqa_apply`` on K6 over the stub frame embeddings (``frontend``,
+``(B, 1500, 384)``); each decoder layer adds cross attention to the
+encoder output (K6), and its decode step recomputes that cross attention
+from ``enc_out`` every step (``_cross_decode``). Without ``enc_out`` (``serve_batch`` passes
 none, as the reference's does) the cross layer attends one token to
 itself; the ``"cross_kv"`` cache is allocated and never read, as in the
 reference. On the CPU every kernel runs its plain version.
@@ -133,8 +137,9 @@ def _whole_layer(p):
 def _layer_init(generator, cfg: ArchConfig, dt: Dtypes, device, kind: str):
     """One layer: a Mamba block (``kind="ssm"``), or attention (GQA or
     MLA) and an MLP (``"attn"``; ``"moe"`` in place of ``"mlp"`` for an
-    MoE config), with cross attention to the encoder between them
-    (``"cross"``, whisper's decoder)."""
+    MoE config, but in a leading dense layer, ``"dense"``), with cross
+    attention to the encoder between them (``"cross"``, whisper's
+    decoder)."""
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dt.param, device=device)
     if kind == "ssm":
         return {"attn_norm": zeros(),
@@ -145,7 +150,7 @@ def _layer_init(generator, cfg: ArchConfig, dt: Dtypes, device, kind: str):
         p["cross_norm"] = zeros()
         p["cross"] = L.gqa_init(generator, cfg, dt, device)
     p["mlp_norm"] = zeros()
-    if cfg.is_moe:
+    if cfg.is_moe and kind != "dense":
         p["moe"] = L.moe_init(generator, cfg, dt, device)
     else:
         p["mlp"] = L.mlp_init(generator, cfg, dt, device)
@@ -185,8 +190,10 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     a time into preallocated stacks (qwen3-14b in float32 is 59.07 GB,
     falcon-mamba-7b 28.02 GB). whisper's encoder layers (``enc_layers``,
     self attention and MLP) and decoder layers (``layers``, with cross
-    attention) are two stacks, and ``enc_norm`` ends the encoder.
-    zamba2's shared attention block is drawn once, after the layers."""
+    attention) are two stacks, and ``enc_norm`` ends the encoder. The
+    leading dense layers of an MoE config (``n_dense_layers``) are a stack
+    of their own, ``dense_layers``, drawn before ``layers``. zamba2's
+    shared attention block is drawn once, after the layers."""
     dev = resolve_device(device, "init_params")
     check_supported(cfg)
     if generator.device.type != dev.type:
@@ -209,8 +216,11 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
                                          device=dev)
     else:
         kind = "ssm" if cfg.ssm is not None else "attn"
+        if cfg.n_dense_layers:
+            params["dense_layers"] = _draw_stack(generator, cfg, dt, dev,
+                                                 "dense", cfg.n_dense_layers)
         params["layers"] = _draw_stack(generator, cfg, dt, dev, kind,
-                                       cfg.n_layers)
+                                       cfg.n_layers - cfg.n_dense_layers)
     if cfg.shared_attn_every:
         params["shared_attn"] = _layer_init(generator, cfg, dt, dev, "attn")
     return params
@@ -222,11 +232,20 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
 
 
 def _ffn(p, h, cfg: ArchConfig):
-    """The layer's MLP, or its MoE on the capacity path as the reference
-    serves it."""
-    if cfg.is_moe:
-        return L.moe_apply(p["moe"], h, cfg)
+    """The layer's MLP, or its MoE: on the capacity path as the reference
+    serves it, or dropless on K9 where the config says so
+    (``moe_dropless``)."""
+    if "moe" in p:
+        return L.moe_apply(p["moe"], h, cfg, use_kernel=cfg.moe_dropless)
     return L.mlp_apply(p["mlp"], h, cfg)
+
+
+def _attn_layers(params, cfg: ArchConfig) -> list:
+    """``(stack, index)`` of each attention layer in order: the leading
+    dense layers (``dense_layers``), then ``layers``."""
+    return ([(params["dense_layers"], i) for i in range(cfg.n_dense_layers)]
+            + [(params["layers"], i)
+               for i in range(cfg.n_layers - cfg.n_dense_layers)])
 
 
 def _attn_mlp_block(p, x, cfg: ArchConfig, *, positions, window=0,
@@ -364,14 +383,14 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
     elif cfg.ssm is not None:
         x = _scan_ssm(params["layers"], x, cfg, range(cfg.n_layers))
     else:
-        x = _scan_attn(params["layers"], x, cfg, positions, enc_out,
-                       inference)
+        x = _scan_attn(params, x, cfg, positions, enc_out, inference)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _scan_attn(stacked, x, cfg: ArchConfig, positions, enc_out=None,
+def _scan_attn(params, x, cfg: ArchConfig, positions, enc_out=None,
                inference=False):
-    for i, window in enumerate(_window_schedule(cfg)):
+    for (stacked, i), window in zip(_attn_layers(params, cfg),
+                                    _window_schedule(cfg)):
         x = _constrain(L.remat(
             lambda lp, x, window=window: _attn_mlp_block(
                 lp, x, cfg, positions=positions, window=window,
@@ -697,12 +716,13 @@ def _cross_decode(p, h, cfg, enc_out):
 
 
 def _mla_decode(params, x, cache, lengths, cfg, positions_t):
-    """minicpm3's MLA stack, one layer at a time: each layer writes its
-    latent and rotary-key rows at ``lengths`` in place and attends in
-    latent space (``layers.mla_apply``, plain torch), then its MLP."""
+    """The MLA stack (minicpm3's, moonlight's), one layer at a time: each
+    layer writes its latent and rotary-key rows at ``lengths`` in place
+    and attends in latent space (``layers.mla_apply``, plain torch), then
+    its MLP or MoE."""
     c_lat, c_kr = cache["mla"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for i, (stacked, j) in enumerate(_attn_layers(params, cfg)):
+        lp = layer_params(stacked, j)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         a, _ = L.mla_apply(lp["attn"], h, cfg, positions=positions_t,
                            kv_cache=(c_lat[i], c_kr[i]), cache_len=lengths,
@@ -725,8 +745,9 @@ def _dense_decode(params, x, cache, lengths, cfg, positions_t, enc_out=None):
             caches.append((cache["local_kv"], n_local) if window else
                           (cache["global_kv"], i - n_local))
             n_local += bool(window)
-    for i, ((ck, cv), j) in enumerate(caches):
-        x = _attn_mlp_decode(layer_params(params["layers"], i), x, cfg,
+    for ((ck, cv), j), (stacked, i) in zip(caches,
+                                           _attn_layers(params, cfg)):
+        x = _attn_mlp_decode(layer_params(stacked, i), x, cfg,
                              (ck[j], cv[j]), lengths, positions_t, enc_out)
     return x
 

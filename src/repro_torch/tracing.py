@@ -36,6 +36,12 @@ over every outermost span (the counters that moved).
 
 The recorder holds at most ``LIMIT`` closed or open spans between two
 ``take()`` calls and counts the spans it had to drop.
+
+Taps: ``tap(name, value)`` hands a value the program computed (a
+tensor, as it is) to the callable that an open ``tapping()`` block gave
+for ``name``; outside one it checks one module-level name and does
+nothing. The MoE layers tap their routing (``"moe.route"``: each token's
+experts), which a check compares with a reference's choice.
 """
 
 from __future__ import annotations
@@ -229,3 +235,29 @@ def recording():
         yield rec
     finally:
         _active = None
+
+
+_sinks: Optional[dict] = None  # name -> callable, while tapping() is open
+
+
+def tap(name: str, value) -> None:
+    """Hand ``value`` to the callable the open ``tapping()`` block gave
+    for ``name``; nothing otherwise."""
+    sinks = _sinks
+    if sinks is not None and name in sinks:
+        sinks[name](value)
+
+
+@contextlib.contextmanager
+def tapping(sinks: dict):
+    """Hand each value tapped under a name of ``sinks`` to that name's
+    callable, in the order tapped, for the block. One block at a time in
+    a process."""
+    global _sinks
+    if _sinks is not None:
+        raise RuntimeError("tracing.tapping() is open already")
+    _sinks = dict(sinks)
+    try:
+        yield
+    finally:
+        _sinks = None

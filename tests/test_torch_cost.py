@@ -37,7 +37,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
-@pytest.mark.parametrize("arch", configs.all_names())
+@pytest.mark.parametrize("arch", ref_configs.all_names())
 def test_model_flops_match_reference(arch):
     for name, shape in SHAPES.items():
         assert analysis.model_flops(configs.get(arch), shape) == (

@@ -1462,6 +1462,38 @@ def test_reduced_phi35_moe_on_card_matches_the_cpu(cuda):
     assert torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
+def test_reduced_moonlight_on_card_matches_the_cpu(cuda):
+    """A reduced moonlight (MLA without a query LoRA, a dense layer, then
+    MoE layers with a sigmoid router and a correction bias, dropless):
+    the prefill (K6 a layer) and eight serve steps on the card against
+    the CPU, at the reference's decode tolerance; K9's counter moves by
+    3 a MoE layer a step, and nothing else launches K9."""
+    cfg = dataclasses.replace(configs.get("moonlight-16b-a3b").reduced(),
+                              n_layers=3, n_experts=8)
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                        device="cpu")
+    cpu["layers"]["moe"]["router_bias"].normal_(
+        0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    card = convert.from_reference(convert.to_numpy(cpu), device=cuda)
+    tok = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 8)))
+    got, _ = T.prefill(card, tok.to(cuda), cfg, L.FP32)
+    want, _ = T.prefill(cpu, tok, cfg, L.FP32)
+    assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+    step = launch_steps.make_serve_step(cfg, L.FP32)
+    caches = {d: (T.init_cache(cfg, 2, 9, L.FP32, device=d),
+                  torch.zeros(2, dtype=torch.int32, device=d))
+              for d in ("cpu", cuda)}
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    for t in range(tok.shape[1]):
+        n9 = k9.group_matmul.launches
+        got, *caches[cuda] = step(card, tok[:, t:t + 1].to(cuda),
+                                  *caches[cuda])
+        assert k9.group_matmul.launches - n9 == 3 * n_moe
+        want, *caches["cpu"] = step(cpu, tok[:, t:t + 1], *caches["cpu"])
+        assert torch.allclose(got.cpu(), want, atol=2e-3, rtol=1e-3)
+
+
 def test_reduced_falcon_mamba_on_card_matches_the_cpu(cuda):
     """A reduced falcon-mamba-7b's prefill (one K8 launch per layer) and
     four decode steps (K10, two launches a layer step; n = 8 takes its

@@ -32,7 +32,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import shardctx
 from repro_torch.models import transformer as T
 
-ARCHS = configs.all_names()
+# the reference's configs: each is compared with its counterpart there
+ARCHS = ref_configs.all_names()
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
           "2x4": ((2, 4), ("data", "model")),

@@ -130,6 +130,56 @@ def test_recording_is_one_block_at_a_time_and_off_after_it():
     assert tracing.span("x") is tracing.span("y")
 
 
+def test_taps_reach_the_sinks_of_a_tapping_block_and_nothing_else():
+    a, b = [], []
+    tracing.tap("a", 1)  # outside a block: dropped
+    with tracing.tapping({"a": a.append, "b": b.append}):
+        tracing.tap("a", 2)
+        tracing.tap("c", 3)
+        tracing.tap("a", 4)
+        with pytest.raises(RuntimeError):
+            with tracing.tapping({"c": b.append}):
+                pass
+    tracing.tap("a", 5)
+    assert a == [2, 4] and b == []
+
+
+def test_the_moe_layers_tap_their_experts_without_changing_a_step(
+        monkeypatch):
+    """A reduced moonlight's serve step taps each MoE layer's experts,
+    ``(batch, top_k)``, in layer order: the same tensors ``ops.route``
+    gives from the layer's router, and the same logits as untapped."""
+    cfg = dataclasses.replace(configs.get("moonlight-16b-a3b").reduced(),
+                              n_layers=3)
+    params = T.init_params(torch.Generator().manual_seed(5), cfg, L.FP32,
+                           device="cpu")
+    tokens = torch.randint(3, cfg.vocab, (3, 1),
+                           generator=torch.Generator().manual_seed(6))
+    step = steps.make_serve_step(cfg, L.FP32)
+
+    def once():
+        cache = T.init_cache(cfg, 3, 2, L.FP32, device="cpu")
+        return step(params, tokens, cache, torch.zeros(3, dtype=torch.int32))
+
+    plain, *_ = once()
+    seen = []
+    real = L._route
+
+    def spy(p, logits, c):
+        out = real(p, logits, c)
+        seen.append(out[1])
+        return out
+
+    monkeypatch.setattr(L, "_route", spy)
+    taps = []
+    with tracing.tapping({"moe.route": taps.append}):
+        tapped, *_ = once()
+    assert torch.equal(plain, tapped)
+    assert len(taps) == cfg.n_layers - cfg.n_dense_layers
+    assert all(a is b for a, b in zip(taps, seen))
+    assert taps[0].shape == (3, cfg.top_k)
+
+
 def test_launch_counts_read_the_wrappers(monkeypatch):
     got = tracing.launch_counts()
     assert set(got) == {f"K{i}" for i in range(1, 11)}
@@ -253,6 +303,38 @@ def test_serve_steps_are_unchanged_and_spanned():
     assert all(s.step == max(r for r in roots if r <= i)
                for i, s in enumerate(spans))
     assert taken["counts"] == {r: {} for r in roots}
+
+
+def test_moonlight_decode_spans_sit_under_the_serve_step():
+    """A reduced moonlight's serve step (MLA without a query LoRA, a dense
+    layer, dropless MoE layers with a sigmoid router): the same logits
+    with recording on, and each layer's ``mla.attend`` and each MoE
+    layer's ``moe.route``, ``moe.experts`` and ``moe.shared`` children of
+    ``serve.step``."""
+    cfg = dataclasses.replace(configs.get("moonlight-16b-a3b").reduced(),
+                              n_layers=3)
+    params = T.init_params(torch.Generator().manual_seed(5), cfg, L.FP32,
+                           device="cpu")
+    tokens = torch.randint(3, cfg.vocab, (3, 3),
+                           generator=torch.Generator().manual_seed(6))
+    serve_step = steps.make_serve_step(cfg, L.FP32)
+
+    def decode():
+        cache = T.init_cache(cfg, 3, 4, L.FP32, device="cpu")
+        lens = torch.zeros(3, dtype=torch.int32)
+        return [serve_step(params, tokens[:, t:t + 1], cache, lens)[0]
+                for t in range(tokens.shape[1])]
+
+    off, on, taken = _recorded(decode)
+    _same(off, on)
+    spans = taken["spans"]
+    moe = ["mla.attend", "moe.route", "moe.experts", "moe.shared"]
+    step = (["serve.step", "mla.attend"] + moe * (cfg.n_layers - 1)
+            + ["decode.head"])
+    assert _names(spans) == step * tokens.shape[1]
+    for i, s in enumerate(spans):
+        if s.name != "serve.step":
+            assert spans[s.parent].name == "serve.step", (i, s)
 
 
 def _train_loop(tmp_path, cfg, params):

@@ -230,7 +230,7 @@ def test_shape_table_and_applicability_match_reference():
     assert {k: vars(v) for k, v in shapes.SHAPES.items()} == {
         k: vars(v) for k, v in ref_shapes.SHAPES.items()}
     mine = [(c.name, s.name, ok) for c, s, ok in shapes.cells(
-        [configs.get(n) for n in configs.all_names()])]
+        [configs.get(n) for n in ref_configs.all_names()])]
     theirs = [(c.name, s.name, ok) for c, s, ok in ref_shapes.cells(
         [ref_configs.get(n) for n in ref_configs.all_names()])]
     assert mine == theirs
