@@ -2136,7 +2136,8 @@ def check_hybrid_units(cfg, params, prompts) -> dict:
     shared = params["shared_attn"]
     xs = [params["embed"][prompts.long()]]
     for kind, i in units:  # the prefill, one unit at a time
-        xs.append(T._scan_ssm(params["layers"], xs[-1], cfg, [i])
+        xs.append(T._scan_ssm([T.layer_params(params["layers"], i)],
+                              xs[-1], cfg)
                   if kind == "ssm" else
                   T._attn_mlp_block(shared, xs[-1], cfg, positions=pos,
                                     inference=True))

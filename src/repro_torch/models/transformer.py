@@ -20,7 +20,9 @@ Parameters are a dict with the reference's key names and shapes, layer
 weights stacked over a leading layer axis (``layers.attn.wq`` is
 ``(L, d, nh·hd)``), so ``models/convert.py`` carries the reference's
 weights across leaf by leaf. The layers run as a Python loop over views
-of the stacks (the reference's ``lax.scan``). On DTensors (a mesh set by
+of the stacks (the reference's ``lax.scan``); the forward takes them from
+one ``torch.unbind`` of each stack (``layer_views``), so that the
+backward stacks each weight's gradient once. On DTensors (a mesh set by
 ``shardctx.set_mesh_ctx``), ``set_activation_sharding`` redistributes
 each layer's output, and the attention layers constrain q, k, v and the
 output to ``shardctx.attn_spec``, as the reference's do; without a mesh
@@ -75,7 +77,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Shard
 
-from repro_torch import tracing
+from repro_torch import pytree, tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partition
@@ -122,9 +124,22 @@ def layer_params(stacked, i: int):
             else shardctx.gather_fsdp(v[i]) for k, v in stacked.items()}
 
 
+def layer_views(stacked, n: int) -> list:
+    """The ``n`` layers' parameters of a layer-stacked dict, as
+    ``layer_params`` gives them one at a time, from one ``torch.unbind``
+    of each leaf: under autograd each leaf's gradient is then one
+    ``stack`` of its layers' gradients, where a view per layer
+    (``v[i]``) zero-fills a gradient of the whole stack for each layer
+    and sums them. Not yet gathered: the forward loops gather each layer
+    as they reach it (``_whole_layer``)."""
+    unbound = pytree.map_leaves(lambda v: torch.unbind(v, 0), stacked)
+    return [pytree.map_leaves(lambda vs: vs[i], unbound) for i in range(n)]
+
+
 def _whole_layer(p):
-    """An unstacked layer's parameters (zamba2's shared block), each
-    gathered over the data axes on DTensors."""
+    """One layer's parameters, each gathered over the data axes on
+    DTensors: zamba2's unstacked shared block, or a layer of
+    ``layer_views``."""
     return {k: _whole_layer(v) if isinstance(v, dict)
             else shardctx.gather_fsdp(v) for k, v in p.items()}
 
@@ -381,7 +396,7 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
     if cfg.shared_attn_every:
         x = _hybrid_forward(params, x, cfg, positions, inference)
     elif cfg.ssm is not None:
-        x = _scan_ssm(params["layers"], x, cfg, range(cfg.n_layers))
+        x = _scan_ssm(layer_views(params["layers"], cfg.n_layers), x, cfg)
     else:
         x = _scan_attn(params, x, cfg, positions, enc_out, inference)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -389,13 +404,15 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
 
 def _scan_attn(params, x, cfg: ArchConfig, positions, enc_out=None,
                inference=False):
-    for (stacked, i), window in zip(_attn_layers(params, cfg),
-                                    _window_schedule(cfg)):
+    n_dense = cfg.n_dense_layers  # dense layers first, as ``_attn_layers``
+    views = ((layer_views(params["dense_layers"], n_dense) if n_dense else [])
+             + layer_views(params["layers"], cfg.n_layers - n_dense))
+    for lp, window in zip(views, _window_schedule(cfg)):
         x = _constrain(L.remat(
             lambda lp, x, window=window: _attn_mlp_block(
                 lp, x, cfg, positions=positions, window=window,
                 enc_out=enc_out, inference=inference),
-            layer_params(stacked, i), x))
+            _whole_layer(lp), x))
     return x
 
 
@@ -405,11 +422,12 @@ def _ssm_layer(lp, x, cfg: ArchConfig):
     return x + shardctx.gather_seq_grad(y)
 
 
-def _scan_ssm(stacked, x, cfg: ArchConfig, layers):
-    """Pre-norm Mamba layers ``layers`` over the whole sequence from zero
-    states: one K8 launch per Mamba-1 layer on the card."""
-    for i in layers:
-        x = _constrain(L.remat(_ssm_layer, layer_params(stacked, i), x, cfg))
+def _scan_ssm(views, x, cfg: ArchConfig):
+    """Pre-norm Mamba layers, each layer's parameters in ``views`` (of
+    ``layer_views``), over the whole sequence from zero states: one K8
+    launch per Mamba-1 layer on the card."""
+    for lp in views:
+        x = _constrain(L.remat(_ssm_layer, _whole_layer(lp), x, cfg))
     return x
 
 
@@ -428,11 +446,12 @@ def _hybrid_forward(params, x, cfg: ArchConfig, positions, inference=False):
     attention + MLP block at full attention (one K6 launch each), then
     the remaining layers."""
     segments, rest = _segments(cfg)
+    views = layer_views(params["layers"], cfg.n_layers)
     for seg in segments:
-        x = _scan_ssm(params["layers"], x, cfg, seg)
+        x = _scan_ssm([views[i] for i in seg], x, cfg)
         x = _attn_mlp_block(_whole_layer(params["shared_attn"]), x, cfg,
                             positions=positions, inference=inference)
-    return _scan_ssm(params["layers"], x, cfg, rest)
+    return _scan_ssm([views[i] for i in rest], x, cfg)
 
 
 def _encode(params, frames, cfg: ArchConfig, dt: Dtypes = L.FP32):
@@ -442,9 +461,8 @@ def _encode(params, frames, cfg: ArchConfig, dt: Dtypes = L.FP32):
     x = frames.to(dt.compute)
     b, f, _ = x.shape
     positions = torch.arange(f, device=x.device)[None, :].expand(b, f)
-    for i in range(cfg.n_enc_layers):
-        x = L.remat(_enc_layer, layer_params(params["enc_layers"], i), x,
-                    positions, cfg)
+    for lp in layer_views(params["enc_layers"], cfg.n_enc_layers):
+        x = L.remat(_enc_layer, _whole_layer(lp), x, positions, cfg)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 

@@ -1827,6 +1827,56 @@ def test_train_main_on_card_launches_k6_twice_a_layer_a_step(cuda,
     assert np.allclose(run.losses, want, rtol=0, atol=2e-3)
 
 
+def test_unbound_layer_views_on_card_match_per_index_views(cuda,
+                                                           monkeypatch):
+    """A reduced minicpm3-4b's train-step gradient on the card (``loss_fn``
+    under ``torch.autograd.grad``, as ``make_train_step`` takes it)
+    through ``transformer.layer_views``, one ``unbind`` a stack, against a
+    view per layer (``layer_params(stack, i)``): every leaf bit for bit
+    (deterministic algorithms, so the embedding's index sums in one
+    order), and a peak of allocated memory no higher over the step, as no
+    layer's backward zero-fills a gradient of its whole stack."""
+    from repro_torch import pytree
+
+    cfg = configs.get("minicpm3-4b").reduced()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, L.FP32, device="cuda")
+    leaves = pytree.leaves(params)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 512),
+                                              dtype=np.int32)).cuda()
+             for k in ("tokens", "targets")}
+
+    def grads():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with torch.enable_grad():
+                for p in leaves:
+                    p.requires_grad_(True)
+                out = torch.autograd.grad(
+                    T.loss_fn(params, batch, cfg, L.FP32), leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, got_peak = grads()
+        monkeypatch.setattr(T, "layer_views", lambda stacked, n: [
+            T.layer_params(stacked, i) for i in range(n)])
+        want, want_peak = grads()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for (path, _), g, w in zip(pytree.items(params), got, want):
+        assert torch.equal(g, w), path
+    assert got_peak <= want_peak, (got_peak, want_peak)
+
+
 def test_kernels_without_a_backward_refuse_grad_on_the_card(cuda):
     """Each wrapper without an autograd Function raises naming its kernel
     when a CUDA input requires grad under grad mode, and runs under

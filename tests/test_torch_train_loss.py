@@ -150,3 +150,77 @@ def test_remat_recomputes_only_where_autograd_needs_it(monkeypatch):
     # each layer's recompute checkpoints its chunks again (nested, as
     # jax.checkpoint inside jax.checkpoint)
     assert len(calls) == cfg.n_layers * (S // cfg.ssm_chunk)
+
+
+# every forward loop that takes its layers through ``layer_views``: GQA
+# and MLA stacks, a Mamba-1 stack, zamba2's segments, whisper's encoder
+# and decoder, moonlight's dense and MoE stacks
+UNBIND_ARCHS = ["qwen3-14b", "minicpm3-4b", "falcon-mamba-7b", "zamba2-7b",
+                "whisper-tiny", "moonlight-16b-a3b"]
+STACKS = ("dense_layers", "enc_layers", "layers")
+
+
+def _loss_on_leaves(name):
+    """A reduced config's parameters (seeded), its leaves requiring grad,
+    and ``loss_fn`` over this file's batch."""
+    cfg = configs.get(name).reduced()
+    params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    leaves = pytree.leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    batch = {k: torch.from_numpy(v) for k, v in _batch(name).items()}
+    return params, leaves, T.loss_fn(params, batch, cfg)
+
+
+def _stacked(params, grads):
+    """``(path, shape, grad)`` of every leaf of a layer stack."""
+    return [(path, tuple(p.shape), g)
+            for (path, p), g in zip(pytree.items(params), grads)
+            if path.split("/")[0] in STACKS]
+
+
+@pytest.mark.parametrize("name", UNBIND_ARCHS)
+def test_backward_stacks_each_stacked_gradient_once(name):
+    """The forward takes each stack's layers through one ``unbind``, so
+    the backward gives each stacked leaf its gradient by one ``stack``
+    (under ``UnbindBackward0``) and never a layer's ``select_backward``,
+    which would zero-fill a gradient of the whole stack for each layer.
+    A ``select_backward`` of the model's own (a position of the plain
+    scan) takes no stack's shape at dim 0. moonlight's router bias only
+    chooses experts, so it has no gradient and its unbind no backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, leaves, loss = _loss_on_leaves(name)
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    stacked = _stacked(params, grads)
+    shapes = {shape for _, shape, _ in stacked}
+    assert all(g is not None or path.endswith("router_bias")
+               for path, _, g in stacked)
+    events = prof.events()
+    layer_selects = [e for e in events if e.name == "aten::select_backward"
+                     and tuple(e.concrete_inputs[1]) in shapes
+                     and e.concrete_inputs[2] == 0]
+    stacks = [e for e in events if e.name == "aten::stack"
+              and e.cpu_parent is not None
+              and e.cpu_parent.name == "UnbindBackward0"]
+    assert layer_selects == []
+    assert len(stacks) == sum(g is not None for _, _, g in stacked) > 0
+
+
+@pytest.mark.parametrize("name", UNBIND_ARCHS)
+def test_unbound_views_give_the_per_index_views_gradients(name, monkeypatch):
+    """Every gradient leaf through ``layer_views`` equals, bit for bit,
+    the one through a view per layer (``layer_params(stack, i)``): each
+    sums one layer's gradient into zeros, which is exact."""
+    params, leaves, loss = _loss_on_leaves(name)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    monkeypatch.setattr(T, "layer_views", lambda stacked, n: [
+        T.layer_params(stacked, i) for i in range(n)])
+    _, leaves, loss = _loss_on_leaves(name)
+    want = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for (path, _), g, w in zip(pytree.items(params), got, want):
+        assert (g is None) == (w is None), path
+        assert g is None or torch.equal(g, w), path
