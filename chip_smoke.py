@@ -1992,13 +1992,9 @@ def _decode_bound_ms(cfg, params, steps_run, batch=SERVE_B,
         di = cfg.expand * cfg.d_model
         state = (cfg.d_conv - 1) * di + di * cfg.ssm_state
         cache += 2 * 4 * cfg.n_layers * batch * state * steps_run
-    if cfg.shared_attn_every:
-        windows = [0] * (cfg.n_layers // cfg.shared_attn_every)
-    elif cfg.ssm:
-        windows = []
-    else:
-        from repro_torch.models.transformer import _window_schedule
-        windows = _window_schedule(cfg)
+    from repro_torch.models.transformer import layer_plan
+    windows = [layer.window for layer in layer_plan(cfg)
+               if layer.kind != "ssm"]
     row = (4 * (cfg.kv_lora_rank + cfg.qk_rope_dim) if cfg.attn_type == "mla"
            else cfg.n_kv_heads * cfg.resolved_head_dim * 4 * 2)
     for w in windows:
@@ -2040,7 +2036,7 @@ def check_moe_layers(cfg, params, prompts):
     from repro_torch.kernels.moe_group_mm.ops import monotonic_dispatch, route
     from repro_torch.models import layers as L, transformer as T
 
-    hidden = T.forward_hidden(params, prompts, cfg, L.FP32, inference=True)
+    hidden = T.forward_hidden(params, prompts, cfg, L.FP32)
     flat = hidden.reshape(-1, cfg.d_model)
     t, e, k = flat.shape[0], cfg.n_experts, cfg.top_k
     errs, margins, out_max, over_tol = [], [], 0.0, 0.0
@@ -2127,31 +2123,23 @@ def check_hybrid_units(cfg, params, prompts) -> dict:
     from repro_torch.models import layers as L, transformer as T
 
     b, p_len = prompts.shape
-    segments, rest = T._segments(cfg)
-    units = []
-    for app, seg in enumerate(segments):
-        units += [("ssm", i) for i in seg] + [("attn", app)]
-    units += [("ssm", i) for i in rest]
+    plan = T.layer_plan(cfg)
+    units = [("ssm", layer.index) if layer.kind == "ssm"
+             else ("attn", layer.slot) for layer in plan]
+    weights = [T._layer_weights(params, layer) for layer in plan]
     pos = torch.arange(p_len, device="cuda")[None, :].expand(b, p_len)
-    shared = params["shared_attn"]
     xs = [params["embed"][prompts.long()]]
-    for kind, i in units:  # the prefill, one unit at a time
-        xs.append(T._scan_ssm([T.layer_params(params["layers"], i)],
-                              xs[-1], cfg)
-                  if kind == "ssm" else
-                  T._attn_mlp_block(shared, xs[-1], cfg, positions=pos,
-                                    inference=True))
+    for layer, lp in zip(plan, weights):  # the prefill, one unit at a time
+        xs.append(T._layer_forward(layer, lp, xs[-1], cfg, pos))
     cache = T.init_cache(cfg, b, SERVE_MAX_SEQ, L.FP32, device="cuda")
-    sk, sv = cache["shared_kv"]
     lens = torch.zeros(b, dtype=torch.int32, device="cuda")
     worst = torch.zeros(len(units), device="cuda")
     t0 = time.perf_counter()
     for t in range(p_len):
-        for u, (kind, i) in enumerate(units):
+        for u, (layer, lp) in enumerate(zip(plan, weights)):
             x = xs[u][:, t:t + 1]
-            y = (T._ssm_decode(params, x, cache, cfg, [i]) if kind == "ssm"
-                 else T._attn_mlp_decode(shared, x, cfg, (sk[i], sv[i]),
-                                         lens, lens[:, None]))
+            y = T._layer_decode(layer, lp, x, cfg, cache, lens,
+                                lens[:, None])
             want = xs[u + 1][:, t:t + 1]
             worst[u] = torch.maximum(worst[u], (
                 (y - want).abs() / (SERVE_ATOL + SERVE_RTOL * want.abs()))
@@ -2384,7 +2372,7 @@ def run_ring_check():
     from repro_torch.models import layers as L, transformer as T
 
     cfg = dataclasses.replace(configs.get(WINDOW_ARCH), n_layers=RING_LAYERS)
-    windows = T._window_schedule(cfg)
+    windows = [layer.window for layer in T.layer_plan(cfg)]
     p_len = cfg.sliding_window + RING_EXTRA
     max_seq = p_len + 1
     dev = torch.device("cuda")

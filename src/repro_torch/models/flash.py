@@ -50,12 +50,8 @@ __all__ = ["NEG_INF", "flash_mha", "flash_mha_local", "flash_bwd",
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
-              q_block: int = 512, kv_block: int = 512,
-              skip_masked_blocks: bool = True):
-    """``(B, S, H, Dv)`` attention; ``skip_masked_blocks`` is kept for the
-    reference's signature (the card kernel always stops at the causal
-    diagonal, and the skipped blocks add exactly zero)."""
-    del skip_masked_blocks
+              q_block: int = 512, kv_block: int = 512):
+    """``(B, S, H, Dv)`` attention."""
     window = int(window)
     if shardctx.any_dtensor(q, k, v):
         return _flash_sharded(q, k, v, causal=causal, window=window,

@@ -15,23 +15,28 @@ hybrid (zamba2-7b):
   init_cache(cfg, batch, max_seq, dt, device=) -> cache
   loss_fn(params, batch, cfg, dt)              -> mean next-token loss
   chunked_ce(hidden, targets, w_out)           -> the same, from the hidden
+  layer_plan(cfg)                              -> the decoder's layers
 
 Parameters are a dict with the reference's key names and shapes, layer
 weights stacked over a leading layer axis (``layers.attn.wq`` is
 ``(L, d, nh·hd)``), so ``models/convert.py`` carries the reference's
-weights across leaf by leaf. The layers run as a Python loop over views
-of the stacks (the reference's ``lax.scan``); the forward takes them from
-one ``torch.unbind`` of each stack (``layer_views``), so that the
-backward stacks each weight's gradient once. On DTensors (a mesh set by
-``shardctx.set_mesh_ctx``), ``set_activation_sharding`` redistributes
-each layer's output, and the attention layers constrain q, k, v and the
-output to ``shardctx.attn_spec``, as the reference's do; without a mesh
-both are no-ops. Under grad mode each
-layer body, each whisper encoder layer and each cross-entropy chunk is
-recomputed in the backward (``layers.remat``), where the reference wraps
-them in ``jax.checkpoint(..., nothing_saveable)``; zamba2's shared block
-is not, as in the reference. gemma3's local and global layers and
-zamba2's segments run in the same loop.
+weights across leaf by leaf. ``layer_plan`` decides, once per config, the
+decoder's layers in run order: each one's parameter stack and index, its
+kind (attention, Mamba, or zamba2's shared block), its sliding window and
+its slot of the decode cache. ``init_params`` and ``init_cache`` size the
+stacks and the cache from it; the forward and the decode step are each one
+loop over it, with one body per kind (``_layer_forward``,
+``_layer_decode``). The forward takes the layers from one
+``torch.unbind`` of each stack (``layer_views``, the reference's
+``lax.scan``), so that the backward stacks each weight's gradient once. On
+DTensors (a mesh set by ``shardctx.set_mesh_ctx``),
+``set_activation_sharding`` redistributes each layer's output, and the
+attention layers constrain q, k, v and the output to
+``shardctx.attn_spec``, as the reference's do; without a mesh both are
+no-ops. Under grad mode each layer body, each whisper encoder layer and
+each cross-entropy chunk is recomputed in the backward (``layers.remat``),
+where the reference wraps them in ``jax.checkpoint(...,
+nothing_saveable)``; zamba2's shared block is not, as in the reference.
 
 Training differentiates through K6 and K8 by their autograd Functions
 (``flash.flash_mha``, ``ssm_scan.selective_scan``); MoE layers train on
@@ -46,8 +51,8 @@ for K7. A Mamba-1 layer's scan over a sequence launches the
 selective-scan kernel K8 once (``models.ssm``); its decode step is the
 plain recurrence. A Mamba-2 layer is plain torch both ways (the reference
 has no kernel for it); zamba2's one shared attention block runs after
-every ``shared_attn_every`` of them, on K6 and K7 like a dense layer,
-with a KV cache for each of its applications. MoE layers take the reference's
+each segment of them, on K6 and K7 like a dense layer, with a KV cache
+for each of its applications. MoE layers take the reference's
 capacity path, in plain torch, as the reference's serving does; the
 grouped matmul kernel K9 runs on the dropless path
 (``layers.moe_apply(use_kernel=True)``).
@@ -56,8 +61,8 @@ minicpm3's MLA layers prefill on K6 with a value head dim of their own
 (q, k 96, v 64) and decode in latent space in plain torch over the
 ``"mla"`` cache of latent and rotary-key rows (the reference has no
 kernel there). moonlight (a config of the port's own) has MLA without a
-query LoRA, ``n_dense_layers`` leading layers with a dense MLP (their
-own stack, ``dense_layers``, before ``layers``), and MoE layers that its
+query LoRA, leading layers with a dense MLP (their own stack,
+``dense_layers``, before ``layers``), and MoE layers that its
 config serves on the dropless path (``moe_dropless``: K9, no token
 dropped) with a sigmoid router. whisper's encoder runs non-causal
 ``layers.gqa_apply`` on K6 over the stub frame embeddings (``frontend``,
@@ -71,7 +76,9 @@ reference. On the CPU every kernel runs its plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+import collections
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -145,6 +152,74 @@ def _whole_layer(p):
 
 
 # ---------------------------------------------------------------------------
+# the layer plan
+# ---------------------------------------------------------------------------
+
+
+class Layer(NamedTuple):
+    """One decoder layer: its parameters ``params[stack][index]``
+    (``index`` None: zamba2's one unstacked shared block), its ``kind``
+    (``"attn"``, ``"ssm"``, or ``"shared"`` for that block), its sliding
+    ``window`` (0: global attention), and its decode cache, row ``slot``
+    of each leaf of ``cache[cache]``."""
+    stack: str
+    index: Optional[int]
+    kind: str
+    window: int
+    cache: str
+    slot: int
+
+
+@functools.cache
+def layer_plan(cfg: ArchConfig) -> tuple[Layer, ...]:
+    """The decoder's layers in run order (whisper's encoder is apart:
+    ``_encode``):
+
+    - a Mamba stack: each layer of ``layers`` on its ``"ssm"`` slot, and
+      zamba2's shared block after every ``shared_attn_every`` of them, on
+      one ``"shared_kv"`` slot for each application;
+    - gemma3: every ``(local_global_ratio + 1)``-th layer global, on
+      ``"global_kv"``, the others local at ``sliding_window``, each on its
+      ring of ``"local_kv"``;
+    - else attention on ``"mla"`` (MLA's latent cache) or ``"kv"``, an MoE
+      config's ``n_dense_layers`` leading dense layers (``dense_layers``)
+      first."""
+    if cfg.ssm is not None:
+        plan, every = [], cfg.shared_attn_every
+        for i in range(cfg.n_layers):
+            plan.append(Layer("layers", i, "ssm", 0, "ssm", i))
+            if every and (i + 1) % every == 0:
+                plan.append(Layer("shared_attn", None, "shared", 0,
+                                  "shared_kv", (i + 1) // every - 1))
+        return tuple(plan)
+    period = (cfg.local_global_ratio + 1
+              if cfg.sliding_window and cfg.local_global_ratio else 0)
+    plan, n_local = [], 0
+    n_dense = cfg.n_dense_layers
+    for i in range(cfg.n_layers):
+        stack, index = (("dense_layers", i) if i < n_dense
+                        else ("layers", i - n_dense))
+        if period and (i + 1) % period:
+            cache, slot, window = "local_kv", n_local, cfg.sliding_window
+            n_local += 1
+        elif period:
+            cache, slot, window = "global_kv", i - n_local, 0
+        else:
+            cache, slot, window = ("mla" if cfg.attn_type == "mla" else "kv",
+                                   i, 0)
+        plan.append(Layer(stack, index, "attn", window, cache, slot))
+    return tuple(plan)
+
+
+def _layer_weights(params, layer: Layer):
+    """``layer``'s parameters, each gathered over the data axes on
+    DTensors."""
+    if layer.index is None:
+        return _whole_layer(params[layer.stack])
+    return layer_params(params[layer.stack], layer.index)
+
+
+# ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
@@ -206,8 +281,8 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     falcon-mamba-7b 28.02 GB). whisper's encoder layers (``enc_layers``,
     self attention and MLP) and decoder layers (``layers``, with cross
     attention) are two stacks, and ``enc_norm`` ends the encoder. The
-    leading dense layers of an MoE config (``n_dense_layers``) are a stack
-    of their own, ``dense_layers``, drawn before ``layers``. zamba2's
+    stacks of ``layer_plan`` are drawn in its order: an MoE config's
+    leading dense layers (``dense_layers``) before ``layers``. zamba2's
     shared attention block is drawn once, after the layers."""
     dev = resolve_device(device, "init_params")
     check_supported(cfg)
@@ -225,17 +300,17 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     if cfg.enc_dec:
         params["enc_layers"] = _draw_stack(generator, cfg, dt, dev, "attn",
                                            cfg.n_enc_layers)
-        params["layers"] = _draw_stack(generator, cfg, dt, dev, "cross",
-                                       cfg.n_layers)
+    counts = collections.Counter(layer.stack for layer in layer_plan(cfg))
+    kinds = {"dense_layers": "dense",
+             "layers": ("cross" if cfg.enc_dec
+                        else "ssm" if cfg.ssm is not None else "attn")}
+    for stack, kind in kinds.items():
+        if counts[stack]:
+            params[stack] = _draw_stack(generator, cfg, dt, dev, kind,
+                                        counts[stack])
+    if cfg.enc_dec:
         params["enc_norm"] = torch.zeros(cfg.d_model, dtype=dt.param,
                                          device=dev)
-    else:
-        kind = "ssm" if cfg.ssm is not None else "attn"
-        if cfg.n_dense_layers:
-            params["dense_layers"] = _draw_stack(generator, cfg, dt, dev,
-                                                 "dense", cfg.n_dense_layers)
-        params["layers"] = _draw_stack(generator, cfg, dt, dev, kind,
-                                       cfg.n_layers - cfg.n_dense_layers)
     if cfg.shared_attn_every:
         params["shared_attn"] = _layer_init(generator, cfg, dt, dev, "attn")
     return params
@@ -255,24 +330,17 @@ def _ffn(p, h, cfg: ArchConfig):
     return L.mlp_apply(p["mlp"], h, cfg)
 
 
-def _attn_layers(params, cfg: ArchConfig) -> list:
-    """``(stack, index)`` of each attention layer in order: the leading
-    dense layers (``dense_layers``), then ``layers``."""
-    return ([(params["dense_layers"], i) for i in range(cfg.n_dense_layers)]
-            + [(params["layers"], i)
-               for i in range(cfg.n_layers - cfg.n_dense_layers)])
-
-
 def _attn_mlp_block(p, x, cfg: ArchConfig, *, positions, window=0,
-                    enc_out=None, inference=False):
+                    enc_out=None):
     """Pre-norm attention (GQA or MLA), then cross attention to
     ``enc_out`` where it is given (whisper's decoder), then the MLP/MoE;
     ``window`` is the layer's sliding window (0 = full attention)."""
     h = _norm(x, p["attn_norm"], cfg)
-    if cfg.attn_type == "mla":
-        a = _mla_train(p, h, cfg, positions)
+    if cfg.attn_type == "mla":  # K6 over the latent expanded to K, V
+        a = L.mla_apply(p["attn"], h, cfg, positions=positions,
+                        eps=cfg.norm_eps)
     else:
-        a = _gqa_train(p["attn"], h, cfg, positions, window, inference)
+        a = _gqa_train(p["attn"], h, cfg, positions, window)
     x = x + shardctx.gather_seq_grad(a)
     if enc_out is not None:
         h = _norm(x, p["cross_norm"], cfg)
@@ -308,7 +376,7 @@ def _qkv(p, h, cfg: ArchConfig, positions):
     return q, k, v
 
 
-def _gqa_train(p, h, cfg: ArchConfig, positions, window=0, inference=False):
+def _gqa_train(p, h, cfg: ArchConfig, positions, window=0):
     """Full-sequence causal GQA through blocked flash attention (K6 on
     the card), masked to ``window`` keys where it is > 0."""
     b, s, _ = h.shape
@@ -324,31 +392,12 @@ def _gqa_train(p, h, cfg: ArchConfig, positions, window=0, inference=False):
         if kspec is not None:
             k = shardctx.constrain(k, *kspec)
             v = shardctx.constrain(v, *kspec)
-    out = flash_mha(q, k, v, causal=True, window=window,
-                    skip_masked_blocks=inference)
+    out = flash_mha(q, k, v, causal=True, window=window)
     if spec is not None:
         out = shardctx.constrain(out, *spec)
     hd = cfg.resolved_head_dim
     out = shardctx.reshape(out, b, s, cfg.n_heads * hd)
     return out @ p["wo"].to(h.dtype)
-
-
-def _mla_train(p, h, cfg: ArchConfig, positions):
-    """Full-sequence causal MLA: the latent expanded to per-head K and V,
-    one K6 launch on the card (``layers.mla_apply``)."""
-    return L.mla_apply(p["attn"], h, cfg, positions=positions,
-                       eps=cfg.norm_eps)
-
-
-def _window_schedule(cfg: ArchConfig) -> list[int]:
-    """Each layer's window, 0 for global attention: gemma3's every
-    ``(local_global_ratio + 1)``-th layer is global, the others local at
-    ``sliding_window``; every other config's are all 0."""
-    if cfg.sliding_window and cfg.local_global_ratio:
-        period = cfg.local_global_ratio + 1
-        return [0 if (i + 1) % period == 0 else cfg.sliding_window
-                for i in range(cfg.n_layers)]
-    return [0] * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +428,7 @@ def _embed(params, tokens, cfg: ArchConfig, dt: Dtypes, frontend=None):
 
 
 def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
-                   frontend=None, inference=False):
+                   frontend=None):
     """Token ids ``(B, S)`` -> final-normed hidden states ``(B, S, d)``.
     whisper's decoder attends to the encoder's output over ``frontend``,
     the stub frame embeddings ``(B, frontend_len, d)``, which it needs."""
@@ -393,65 +442,40 @@ def forward_hidden(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
             raise ValueError(f"{cfg.name}: the encoder-decoder needs the "
                              f"frame embeddings (frontend)")
         enc_out = _encode(params, frontend, cfg, dt)
-    if cfg.shared_attn_every:
-        x = _hybrid_forward(params, x, cfg, positions, inference)
-    elif cfg.ssm is not None:
-        x = _scan_ssm(layer_views(params["layers"], cfg.n_layers), x, cfg)
-    else:
-        x = _scan_attn(params, x, cfg, positions, enc_out, inference)
+    plan = layer_plan(cfg)
+    views = {stack: layer_views(params[stack], n)
+             for stack, n in collections.Counter(
+                 layer.stack for layer in plan
+                 if layer.index is not None).items()}
+    for layer in plan:
+        lp = (params[layer.stack] if layer.index is None
+              else views[layer.stack][layer.index])
+        x = _layer_forward(layer, _whole_layer(lp), x, cfg, positions,
+                           enc_out)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _scan_attn(params, x, cfg: ArchConfig, positions, enc_out=None,
-               inference=False):
-    n_dense = cfg.n_dense_layers  # dense layers first, as ``_attn_layers``
-    views = ((layer_views(params["dense_layers"], n_dense) if n_dense else [])
-             + layer_views(params["layers"], cfg.n_layers - n_dense))
-    for lp, window in zip(views, _window_schedule(cfg)):
-        x = _constrain(L.remat(
-            lambda lp, x, window=window: _attn_mlp_block(
-                lp, x, cfg, positions=positions, window=window,
-                enc_out=enc_out, inference=inference),
-            _whole_layer(lp), x))
-    return x
+def _layer_forward(layer: Layer, lp, x, cfg: ArchConfig, positions,
+                   enc_out=None):
+    """One layer of the plan over the whole sequence, ``lp`` its
+    parameters: a Mamba layer (one K8 launch for Mamba-1 on the card) or
+    an attention layer at its window, each recomputed in the backward and
+    its output constrained (``_constrain``); zamba2's shared block at full
+    attention, neither, as in the reference."""
+    if layer.kind == "shared":
+        return _attn_mlp_block(lp, x, cfg, positions=positions)
+    if layer.kind == "ssm":
+        return _constrain(L.remat(_ssm_layer, lp, x, cfg))
+    return _constrain(L.remat(
+        lambda lp, x: _attn_mlp_block(lp, x, cfg, positions=positions,
+                                      window=layer.window, enc_out=enc_out),
+        lp, x))
 
 
 def _ssm_layer(lp, x, cfg: ArchConfig):
     h = _norm(x, lp["attn_norm"], cfg)
     y, _ = S.mamba_apply(lp["ssm"], h, cfg)
     return x + shardctx.gather_seq_grad(y)
-
-
-def _scan_ssm(views, x, cfg: ArchConfig):
-    """Pre-norm Mamba layers, each layer's parameters in ``views`` (of
-    ``layer_views``), over the whole sequence from zero states: one K8
-    launch per Mamba-1 layer on the card."""
-    for lp in views:
-        x = _constrain(L.remat(_ssm_layer, _whole_layer(lp), x, cfg))
-    return x
-
-
-def _segments(cfg: ArchConfig):
-    """zamba2's Mamba layers, as ranges: ``n_layers // shared_attn_every``
-    segments of ``shared_attn_every``, each followed by the shared block,
-    then the remainder (empty where none)."""
-    every = cfg.shared_attn_every
-    n_seg = cfg.n_layers // every
-    return ([range(i * every, (i + 1) * every) for i in range(n_seg)],
-            range(n_seg * every, cfg.n_layers))
-
-
-def _hybrid_forward(params, x, cfg: ArchConfig, positions, inference=False):
-    """zamba2: each segment of Mamba-2 layers, then the one shared
-    attention + MLP block at full attention (one K6 launch each), then
-    the remaining layers."""
-    segments, rest = _segments(cfg)
-    views = layer_views(params["layers"], cfg.n_layers)
-    for seg in segments:
-        x = _scan_ssm([views[i] for i in seg], x, cfg)
-        x = _attn_mlp_block(_whole_layer(params["shared_attn"]), x, cfg,
-                            positions=positions, inference=inference)
-    return _scan_ssm([views[i] for i in rest], x, cfg)
 
 
 def _encode(params, frames, cfg: ArchConfig, dt: Dtypes = L.FP32):
@@ -605,6 +629,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def _cache(cfg: ArchConfig, batch: int, max_seq: int, dt: Dtypes, dev):
+    """``init_cache``'s cache, unsharded: each key's leading axis holds
+    that key's slots of ``layer_plan``."""
+    n = collections.Counter(layer.cache for layer in layer_plan(cfg))
+
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt.compute, device=dev)
 
@@ -613,25 +641,22 @@ def _cache(cfg: ArchConfig, batch: int, max_seq: int, dt: Dtypes, dev):
         return zeros(*shape), zeros(*shape)
 
     if cfg.ssm is not None:
-        st = S.mamba_init_state(cfg, cfg.n_layers * batch, device=dev)
-        cache = {"ssm": {k: v.reshape((cfg.n_layers, batch) + v.shape[1:])
+        st = S.mamba_init_state(cfg, n["ssm"] * batch, device=dev)
+        cache = {"ssm": {k: v.reshape((n["ssm"], batch) + v.shape[1:])
                          for k, v in st.items()}}
         if cfg.shared_attn_every:
-            cache["shared_kv"] = kv(cfg.n_layers // cfg.shared_attn_every,
-                                    max_seq)
+            cache["shared_kv"] = kv(n["shared_kv"], max_seq)
         return cache
     if cfg.sliding_window and cfg.local_global_ratio:
-        n_global = _window_schedule(cfg).count(0)
-        return {"local_kv": kv(cfg.n_layers - n_global,
+        return {"local_kv": kv(n["local_kv"],
                                min(cfg.sliding_window, max_seq)),
-                "global_kv": kv(n_global, max_seq)}
+                "global_kv": kv(n["global_kv"], max_seq)}
     if cfg.attn_type == "mla":
-        return {"mla": (zeros(cfg.n_layers, batch, max_seq, cfg.kv_lora_rank),
-                        zeros(cfg.n_layers, batch, max_seq,
-                              cfg.qk_rope_dim))}
-    cache = {"kv": kv(cfg.n_layers, max_seq)}
+        return {"mla": (zeros(n["mla"], batch, max_seq, cfg.kv_lora_rank),
+                        zeros(n["mla"], batch, max_seq, cfg.qk_rope_dim))}
+    cache = {"kv": kv(n["kv"], max_seq)}
     if cfg.enc_dec:
-        cache["cross_kv"] = kv(cfg.n_layers, cfg.frontend_len)
+        cache["cross_kv"] = kv(n["kv"], cfg.frontend_len)
     return cache
 
 
@@ -689,30 +714,46 @@ def decode_step(params, tokens, cache, lengths, cfg: ArchConfig,
     the reference (``serve_batch`` gives none). Other models ignore it."""
     check_supported(cfg)
     x = _lookup(params["embed"], tokens).to(dt.compute)
-    if cfg.shared_attn_every:
-        x = _hybrid_decode(params, x, cache, lengths, cfg, lengths[:, None])
-    elif cfg.ssm is not None:
-        x = _ssm_decode(params, x, cache, cfg, range(cfg.n_layers))
-    elif cfg.attn_type == "mla":
-        x = _mla_decode(params, x, cache, lengths, cfg, lengths[:, None])
-    else:
-        x = _dense_decode(params, x, cache, lengths, cfg, lengths[:, None],
-                          enc_out)
+    positions_t = lengths[:, None]
+    for layer in layer_plan(cfg):
+        x = _layer_decode(layer, _layer_weights(params, layer), x, cfg,
+                          cache, lengths, positions_t, enc_out)
     with tracing.span("decode.head"):
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = x[:, 0].float() @ _w_out(params, cfg).float()
     return logits, cache
 
 
+def _layer_decode(layer: Layer, lp, x, cfg: ArchConfig, cache, lengths,
+                  positions_t, enc_out=None):
+    """One layer of the plan, one token, ``lp`` its parameters: its slot
+    of the cache (row ``layer.slot`` of each leaf of
+    ``cache[layer.cache]``) is updated in place."""
+    leaf, slot = cache[layer.cache], layer.slot
+    if layer.kind == "ssm":
+        return _ssm_decode(lp, x, cfg, {k: v[slot] for k, v in leaf.items()})
+    k, v = leaf
+    return _attn_mlp_decode(lp, x, cfg, (k[slot], v[slot]), lengths,
+                            positions_t, enc_out)
+
+
 def _attn_mlp_decode(p, x, cfg, cache_kv, lengths, positions_t,
                      enc_out=None):
-    """One pre-norm attention + MLP/MoE layer's step against its KV cache
-    (updated in place); whisper's decoder layers add their cross attention
-    between the two: to ``enc_out`` (``_cross_decode``), or without it to
-    the token itself, as the reference does."""
+    """One pre-norm attention + MLP/MoE layer's step against its cache
+    (updated in place): GQA against its K/V (``_decode_gqa``), or MLA
+    writing its latent and rotary-key rows at ``lengths`` and attending in
+    latent space (``layers.mla_apply``, plain torch). whisper's decoder
+    layers add their cross attention between the two: to ``enc_out``
+    (``_cross_decode``), or without it to the token itself, as the
+    reference does."""
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    a, _ = _decode_gqa(p["attn"], h, cfg, cache_kv, lengths,
-                       positions_t=positions_t)
+    if cfg.attn_type == "mla":
+        a, _ = L.mla_apply(p["attn"], h, cfg, positions=positions_t,
+                           kv_cache=cache_kv, cache_len=lengths,
+                           eps=cfg.norm_eps)
+    else:
+        a, _ = _decode_gqa(p["attn"], h, cfg, cache_kv, lengths,
+                           positions_t=positions_t)
     y = x + a
     if cfg.enc_dec:
         h = L.rms_norm(y, p["cross_norm"], cfg.norm_eps)
@@ -733,73 +774,18 @@ def _cross_decode(p, h, cfg, enc_out):
         kv_source=enc_out, use_rope=False, eps=cfg.norm_eps)
 
 
-def _mla_decode(params, x, cache, lengths, cfg, positions_t):
-    """The MLA stack (minicpm3's, moonlight's), one layer at a time: each
-    layer writes its latent and rotary-key rows at ``lengths`` in place
-    and attends in latent space (``layers.mla_apply``, plain torch), then
-    its MLP or MoE."""
-    c_lat, c_kr = cache["mla"]
-    for i, (stacked, j) in enumerate(_attn_layers(params, cfg)):
-        lp = layer_params(stacked, j)
-        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        a, _ = L.mla_apply(lp["attn"], h, cfg, positions=positions_t,
-                           kv_cache=(c_lat[i], c_kr[i]), cache_len=lengths,
-                           eps=cfg.norm_eps)
-        y = x + a
-        h = L.rms_norm(y, lp["mlp_norm"], cfg.norm_eps)
-        x = y + _ffn(lp, h, cfg)
-    return x
-
-
-def _dense_decode(params, x, cache, lengths, cfg, positions_t, enc_out=None):
-    """The attention stack, one layer at a time: the uniform ``"kv"``
-    cache (whisper's decoder with its cross attention), or gemma3's
-    interleaved local layers (each on its ring) and global layers."""
-    if "kv" in cache:
-        caches = [(cache["kv"], i) for i in range(cfg.n_layers)]
-    else:
-        caches, n_local = [], 0
-        for i, window in enumerate(_window_schedule(cfg)):
-            caches.append((cache["local_kv"], n_local) if window else
-                          (cache["global_kv"], i - n_local))
-            n_local += bool(window)
-    for ((ck, cv), j), (stacked, i) in zip(caches,
-                                           _attn_layers(params, cfg)):
-        x = _attn_mlp_decode(layer_params(stacked, i), x, cfg,
-                             (ck[j], cv[j]), lengths, positions_t, enc_out)
-    return x
-
-
-def _hybrid_decode(params, x, cache, lengths, cfg, positions_t):
-    """zamba2: each segment's Mamba-2 steps, then the shared block
-    against the KV cache of that application (one K7 launch), then the
-    remaining layers; states and caches updated in place."""
-    sk, sv = cache["shared_kv"]
-    segments, rest = _segments(cfg)
-    for app, seg in enumerate(segments):
-        x = _ssm_decode(params, x, cache, cfg, seg)
-        x = _attn_mlp_decode(_whole_layer(params["shared_attn"]), x, cfg,
-                             (sk[app], sv[app]), lengths, positions_t)
-    return _ssm_decode(params, x, cache, cfg, rest)
-
-
-def _ssm_decode(params, x, cache, cfg, layers):
-    """Mamba layers ``layers``, one recurrent step each; each layer's
-    conv window and state are overwritten in place with the new ones. Where
-    K10 ran the step it wrote them in place already, and the copies are of
-    a tensor onto itself, which torch returns from without a launch."""
-    conv, hs = cache["ssm"]["conv"], cache["ssm"]["h"]
-    for i in layers:
-        lp = layer_params(params["layers"], i)
-        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        conv_i, h_i = conv[i], hs[i]
-        y, st = S.mamba_apply(lp["ssm"], h, cfg,
-                              state={"conv": conv_i, "h": h_i})
-        with tracing.span("decode.state_write"):
-            conv_i.copy_(st["conv"])
-            h_i.copy_(st["h"])
-        x = x + y
-    return x
+def _ssm_decode(lp, x, cfg, state):
+    """A Mamba layer's recurrent step; its conv window and state
+    (``state``'s ``"conv"`` and ``"h"``) are overwritten in place with the
+    new ones. Where K10 ran the step it wrote them in place already, and
+    the copies are of a tensor onto itself, which torch returns from
+    without a launch."""
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    y, st = S.mamba_apply(lp["ssm"], h, cfg, state=state)
+    with tracing.span("decode.state_write"):
+        state["conv"].copy_(st["conv"])
+        state["h"].copy_(st["h"])
+    return x + y
 
 
 def prefill(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
@@ -809,8 +795,7 @@ def prefill(params, tokens, cfg: ArchConfig, dt: Dtypes = L.FP32, *,
     cache is a fresh ``init_cache``, not filled by the forward pass
     (ROADMAP queue 3)."""
     b, s = tokens.shape
-    hidden = forward_hidden(params, tokens, cfg, dt, frontend=frontend,
-                            inference=True)
+    hidden = forward_hidden(params, tokens, cfg, dt, frontend=frontend)
     logits = hidden[:, -1].float() @ _w_out(params, cfg).float()
     cache = init_cache(cfg, b, max_seq or s, dt, device=tokens.device)
     return logits, cache

@@ -257,6 +257,51 @@ def test_init_params_has_the_reference_structure(name):
     assert torch.equal(again["embed"], mine["embed"])
 
 
+@pytest.mark.parametrize("name", configs.all_names())
+def test_layer_plan_covers_each_stack_and_cache_slot_once(name):
+    """``layer_plan``, which the parameters, the cache, the forward and
+    the decode step all follow: its ``(cache, slot)`` pairs cover each
+    cache key's leading axis once (but whisper's ``"cross_kv"``, which no
+    step reads), and its ``(stack, index)`` pairs each parameter stack's
+    layers once, in order; moonlight's dense layer runs first, and
+    zamba2's shared block after every ``shared_attn_every`` Mamba
+    layers."""
+    cfg = configs.get(name).reduced()
+    plan = T.layer_plan(cfg)
+    cache = T._cache(cfg, 2, 8, L.FP32, torch.device("meta"))
+    slots = {key: [] for key in cache if key != "cross_kv"}
+    for layer in plan:
+        slots[layer.cache].append(layer.slot)
+    for key, got in slots.items():
+        leaf = cache[key]
+        (rows,) = {t.shape[0] for t in (
+            leaf.values() if isinstance(leaf, dict) else leaf)}
+        assert sorted(got) == list(range(rows)), key
+
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, L.FP32,
+                           device="cpu")
+    stacks = {}
+    for layer in plan:
+        stacks.setdefault(layer.stack, []).append(layer.index)
+    assert set(stacks) == {k for k in ("dense_layers", "layers",
+                                       "shared_attn") if k in params}
+    for stack, got in stacks.items():
+        if stack == "shared_attn":
+            assert set(got) == {None}
+        else:
+            assert got == list(range(params[stack]["attn_norm"].shape[0]))
+
+    kinds = [layer.kind for layer in plan]
+    assert [layer.stack for layer in plan[:cfg.n_dense_layers]] == [
+        "dense_layers"] * cfg.n_dense_layers
+    assert (cfg.n_dense_layers > 0) == (name == "moonlight-16b-a3b")
+    every = cfg.shared_attn_every
+    assert kinds.count("shared") == (cfg.n_layers // every if every else 0)
+    for at, layer in enumerate(plan):
+        if layer.kind == "shared":
+            assert kinds[:at].count("ssm") == (layer.slot + 1) * every
+
+
 # ---------------------------------------------------------------------------
 # the model against the reference
 # ---------------------------------------------------------------------------
@@ -489,7 +534,7 @@ def test_gemma3_ring_wraps_against_reference():
     reference's ``decode_step``, and the last step's logits against both
     packages' forward."""
     cfg_r, params_r, cfg, params = _models("gemma3-4b", n_layers=6)
-    assert T._window_schedule(cfg) == [32] * 5 + [0]
+    assert [layer.window for layer in T.layer_plan(cfg)] == [32] * 5 + [0]
     b, s = 2, 80
     tok = _tokens(42, cfg, b, s)
     ref_step = jax.jit(lambda p, t, c, n: ref_T.decode_step(

@@ -92,7 +92,7 @@ def test_prefill_logits_match_the_reference(model):
     got, _ = T.prefill(w, tok, cfg)
     want = R.logits(w, tok, SIZES, first=19)[:, 0]
     assert _gap(got, want) <= ATOL
-    hidden = T.forward_hidden(w, tok, cfg, inference=True)
+    hidden = T.forward_hidden(w, tok, cfg)
     every = R.logits(w, tok, SIZES)
     assert _gap(hidden @ w["lm_head"], every) <= ATOL
     assert _gap(R.logits(w, tok, SIZES, tf32=True), every) > ATOL

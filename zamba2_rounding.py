@@ -68,34 +68,27 @@ def unit_trajectories(T, L, cfg, params, prompts):
     """Each unit's output at the last position: the prefill's, and the
     decode's along its own trajectory."""
     b, p_len = prompts.shape
-    segments, rest = T._segments(cfg)
-    units = []
-    for app, seg in enumerate(segments):
-        units += [("ssm", i) for i in seg] + [("attn", app)]
-    units += [("ssm", i) for i in rest]
+    plan = T.layer_plan(cfg)
+    weights = [T._layer_weights(params, layer) for layer in plan]
     pos = torch.arange(p_len, device="cuda")[None, :].expand(b, p_len)
-    shared = params["shared_attn"]
     x = params["embed"][prompts.long()]
     pre = []
-    for kind, i in units:
-        x = (T._scan_ssm(params["layers"], x, cfg, [i]) if kind == "ssm" else
-             T._attn_mlp_block(shared, x, cfg, positions=pos, inference=True))
+    for layer, lp in zip(plan, weights):
+        x = T._layer_forward(layer, lp, x, cfg, pos)
         pre.append(x[:, -1])
     cache = T.init_cache(cfg, b, MAX_SEQ, L.FP32, device="cuda")
-    sk, sv = cache["shared_kv"]
     lens = torch.zeros(b, dtype=torch.int32, device="cuda")
     for t in range(p_len):
         x = params["embed"][prompts[:, t:t + 1].long()]
         dec = []
-        for kind, i in units:
-            x = (T._ssm_decode(params, x, cache, cfg, [i]) if kind == "ssm"
-                 else T._attn_mlp_decode(shared, x, cfg, (sk[i], sv[i]), lens,
-                                         lens[:, None]))
+        for layer, lp in zip(plan, weights):
+            x = T._layer_decode(layer, lp, x, cfg, cache, lens,
+                                lens[:, None])
             dec.append(x[:, 0])
         lens += 1
     gaps = [float((d - q).abs().max().item()) for d, q in zip(dec, pre)]
     rms = [float(q.pow(2).mean().sqrt().item()) for q in pre]
-    return {"count": len(units), "first_gap": gaps[0], "last_gap": gaps[-1],
+    return {"count": len(plan), "first_gap": gaps[0], "last_gap": gaps[-1],
             "max_gap": max(gaps), "first_rms": rms[0], "last_rms": rms[-1]}
 
 
